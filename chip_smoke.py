@@ -1,29 +1,49 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU: `python3 chip_smoke.py`.
 
-Drives the port's main path — serving the full-width ``dvs_cnn_tcn`` net
-(96 channels, 64x64x2 event frames, 24-step TCN ring) through an 8-slot
-`SessionPool` under a `ContinuousBatcher` on the ``fused`` backend — and
-holds every hand-written kernel of that path against its plain PyTorch
-version on the card.  It imports `repro_torch` only.
+Drives the port's two paths on the card, each through the entry points a
+user calls, and holds every hand-written kernel against its plain PyTorch
+version.  It imports `repro_torch` only.
+
+  * the serving path — the full-width ``dvs_cnn_tcn`` net (96 channels,
+    64x64x2 event frames, 24-step TCN ring) through an 8-slot `SessionPool`
+    under a `ContinuousBatcher` on the ``fused`` backend (kernel K1);
+  * the quickstart path — `python -m repro_torch.quickstart`: the
+    full-width ``cifar10_tnn`` on every deploy backend, the packed-ternary
+    matmul (kernel K2) and the silicon model.
 
 Phases (any failure ends the run with a non-zero exit code and no result
 line):
 
-  1. device   a CUDA device is required; prints its name and power limit
-  2. build    compiles the CUDA sources of the checkout with nvcc
-  3. kernels  the fused ternary conv kernel == its plain version
-              (`torch.equal`, tolerance 0: ternary/dyadic data sums exactly
-              in float32) at every launch shape of the main path for pool
-              size 8 and batch 1, all variants and both input types, plus
-              1x1, 5x5, ragged C_out and odd H, W; then times kernel, plain
-              version and an `F.conv2d` yardstick at the pool-size-8 shapes
-  4. serve    init -> quantize(calib) -> 16 streams x 8 frames, staggered
-              arrivals, through the pool; gates: finite logits, all streams
-              completed, pooled == lone `StreamSession` bit for bit,
-              fused == ref on the card, 9 kernel launches per pool tick
-  5. result   the ``kernels`` JSON line, the card line, and the last line
-              ``{"ok": true, "device": {...}}``
+  1. device     a CUDA device is required; prints its name and power limit
+  2. build      compiles every CUDA source of the checkout with nvcc, all
+                started together
+  3. kernels    K1, the fused ternary conv == its plain version (`torch.equal`,
+                tolerance 0: ternary/dyadic data sums exactly in float32) at
+                every launch shape of the serving path for pool size 8 and
+                batch 1, all variants and both input types, plus 1x1, 5x5,
+                ragged C_out and odd H, W; K2, the packed-ternary matmul ==
+                its plain version == `ternary_matmul_ref` (`torch.equal`) on
+                dyadic x at the eight shapes of the reference's tests, the
+                quickstart and the kernel bench, plus a K that needs padding,
+                in float32 and bf16, and within rtol=atol=1e-4 (float32) /
+                2e-2 (bf16) on Gaussian x (summation order).  Then times
+                each kernel, its plain version and a library yardstick
+  4. serve      init -> quantize(calib) -> 16 streams x 8 frames, staggered
+                arrivals, through the pool; gates: finite logits, all streams
+                completed, pooled == lone `StreamSession` bit for bit,
+                fused == ref on the card, 9 K1 launches per pool tick
+  5. quickstart `repro_torch.quickstart` on the card (exit 0, >= 1 K2 launch);
+                fused == kernel == ref == bitsim on two full-width
+                ``dvs_cnn_tcn`` clips and a bitsim stream == its batch
+                forward; every ``BENCH_silicon.json`` row (the reference's
+                silicon model output) reproduced exactly by the port
+  6. result     the ``kernels`` JSON line, the card line, and the last line
+                ``{"ok": true, "device": {...}}``
+
+Each path is driven with the launch counts set to 0 just before it and read
+just after; launches made to compare a kernel with its plain version fall
+outside those windows.
 
 Timing: CUDA events around a run of launches that were enqueued behind a
 spin kernel, after a warm-up, so the figures are device time and not the
@@ -48,7 +68,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 # published peaks of one H100 SXM (dense): HBM3 bytes/s, float32 outside the
 # tensor cores, int8 in the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {torch.float32: 67e12, torch.int8: 1979e12}
+PEAK_OPS_PER_S = {torch.float32: 67e12, torch.int8: 1979e12, torch.bfloat16: 989e12}
 
 POOL = 8
 N_STREAMS = 16
@@ -56,6 +76,9 @@ N_FRAMES = 8
 SEED = 0
 K1_REPLACES = "src/repro/kernels/ternary_conv2d.py:91"
 K1_SOURCE = "src/repro_torch/csrc/ternary_conv2d.cu"
+K2_REPLACES = "src/repro/kernels/ternary_matmul.py:62"
+K2_SOURCE = "src/repro_torch/csrc/ternary_matmul.cu"
+REPO = Path(__file__).resolve().parent
 
 # (name, H, W, C_in, C_out, K, pool, input dtype) — the nine launches of one
 # pool tick of dvs_cnn_tcn (5 conv + 4 TCN layers; TCN maps carry the extra
@@ -79,6 +102,15 @@ EXTRA_SHAPES = [
     ("odd_hw", 7, 5, 8, 6, 3, 0),
     ("pool3", 9, 9, 12, 10, 3, 3),
 ]
+
+# (M, K, N) of K2: the reference's kernel tests, the quickstart (64x2048x512)
+# and the kernel bench (512x2048x512), plus a K the wrapper pads (98 -> 100)
+MATMUL_SHAPES = [
+    (128, 512, 128), (256, 1024, 384), (8, 512, 128), (100, 100, 70),
+    (1, 2048, 512), (384, 4, 128), (64, 2048, 512), (512, 2048, 512),
+    (7, 98, 33),
+]
+MATMUL_TIMED = [(64, 2048, 512), (512, 2048, 512)]  # quickstart first
 
 
 def fail(msg: str) -> None:
@@ -236,6 +268,106 @@ def time_kernel(dev):
     return total, rows
 
 
+def matmul_case(gen, m, k, n, dtype, dev, gaussian=False):
+    """Seeded K2 operands: x dyadic (trits times 1/4..1, exact in bf16) or
+    Gaussian, packed trit weights [ceil(K/4), N] along K, positive scales."""
+    from repro_torch.core.ternary import pack_ternary
+
+    if gaussian:
+        x = torch.randn((m, k), generator=gen)
+    else:
+        x = (torch.randint(-1, 2, (m, k), generator=gen).float() * 0.25
+             * torch.randint(1, 5, (m, k), generator=gen))
+    k4 = -(-k // 4)
+    t = torch.randint(-1, 2, (4 * k4, n), generator=gen).to(torch.int8)
+    scale = torch.rand(n, generator=gen) * 0.2 + 0.05
+    return x.to(dtype).to(dev), pack_ternary(t, axis=0).to(dev), scale.to(dev)
+
+
+def check_matmul(dev):
+    """Phase 3c: K2 == plain version == oracle (`torch.equal`) on dyadic x;
+    within the JAX tests' tolerances on Gaussian x.  Returns the largest
+    |kernel - plain version| per dtype over all cases."""
+    from repro_torch.kernels.ops import ternary_matmul
+    from repro_torch.kernels.ref import ternary_matmul_ref
+    from repro_torch.kernels.ternary_matmul import (
+        ternary_matmul_cuda,
+        ternary_matmul_native,
+    )
+
+    gen = torch.Generator().manual_seed(SEED + 2)
+    tol = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    n_cases = 0
+    for m, k, n in MATMUL_SHAPES:
+        for dt in (torch.float32, torch.bfloat16):
+            for gaussian in (False, True):
+                x, wp, scale = matmul_case(gen, m, k, n, dt, dev, gaussian)
+                before = ternary_matmul_cuda.launches
+                got = ternary_matmul(x, wp, scale)
+                torch.cuda.synchronize()
+                if ternary_matmul_cuda.launches != before + 1:
+                    fail(f"ternary_matmul on the card did not launch K2 at {(m, k, n)}")
+                xp = F.pad(x, (0, 4 * wp.shape[0] - k))
+                want = ternary_matmul_native(xp, wp, scale)
+                oracle = ternary_matmul_ref(xp, wp, scale)
+                err = (got.float() - want.float()).abs().max().item()
+                worst[dt] = max(worst[dt], err)
+                n_cases += 1
+                where = f"{(m, k, n)} {dt} {'gaussian' if gaussian else 'dyadic'}"
+                if got.shape != (m, n) or got.dtype != dt:
+                    fail(f"K2 output {tuple(got.shape)} {got.dtype} at {where}")
+                if not gaussian:
+                    if not torch.equal(got, want):
+                        fail(f"K2 != plain version at {where}: max|diff|={err}")
+                    if not torch.equal(got, oracle):
+                        fail(f"K2 != ternary_matmul_ref at {where}")
+                elif not torch.allclose(got.float(), want.float(), rtol=tol[dt], atol=tol[dt]):
+                    fail(f"K2 off the plain version beyond {tol[dt]} at {where}: max|diff|={err}")
+    print(f"[chip_smoke] kernels: ternary_matmul == plain version == ref oracle on "
+          f"{n_cases // 2} dyadic cases (tolerance 0), and within 1e-4 (float32) / "
+          f"2e-2 (bf16) on {n_cases // 2} Gaussian cases; max|kernel - plain| "
+          f"float32 {worst[torch.float32]}, bf16 {worst[torch.bfloat16]}", flush=True)
+    return worst[torch.float32], worst[torch.bfloat16]
+
+
+def time_matmul(dev):
+    """Phase 3d: K2 at the quickstart and kernel-bench shapes — kernel, plain
+    version, a `torch.matmul` yardstick on pre-decoded float weights (no
+    scale; the port never calls it) and the bound from the shapes."""
+    from repro_torch.core.ternary import unpack_ternary
+    from repro_torch.kernels.ref import exact_float32
+    from repro_torch.kernels.ternary_matmul import (
+        ternary_matmul_cuda,
+        ternary_matmul_native,
+    )
+
+    gen = torch.Generator().manual_seed(SEED + 3)
+    rows = []
+    for dt in (torch.float32, torch.bfloat16):
+        for m, k, n in MATMUL_TIMED:
+            x, wp, scale = matmul_case(gen, m, k, n, dt, dev, gaussian=True)
+            ms = time_ms(lambda: ternary_matmul_cuda(x, wp, scale))
+            plain_ms = time_ms(lambda: ternary_matmul_native(x, wp, scale), iters=20)
+            w_dec = unpack_ternary(wp, axis=0).to(dt)
+            with exact_float32():
+                library_ms = time_ms(lambda: torch.matmul(x, w_dec))
+            nbytes = x.numel() * x.element_size() + wp.numel() + 4 * n + m * n * x.element_size()
+            ops = 2 * m * k * n
+            bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+            ops_ms = ops / PEAK_OPS_PER_S[dt] * 1e3
+            rows.append({
+                "shape": [m, k, n], "x_dtype": str(dt).split(".")[-1], "ms": ms,
+                "plain_ms": plain_ms, "library_ms": library_ms, "bytes": nbytes,
+                "operations": ops, "bound_ms": max(bytes_ms, ops_ms),
+                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            })
+            print(f"[chip_smoke]   matmul {m}x{k}x{n} {rows[-1]['x_dtype']:8s} kernel {ms:.4f} ms  "
+                  f"plain {plain_ms:.4f} ms  torch.matmul {library_ms:.4f} ms  bound "
+                  f"{rows[-1]['bound_ms']:.6f} ms ({rows[-1]['bound_by']})", flush=True)
+    return rows
+
+
 def serve_main_path(dev):
     """Phase 4: the main path at full width.  Returns (launches counted on
     the main path, serving stats for the report)."""
@@ -322,6 +454,68 @@ def serve_main_path(dev):
     return launches, serving
 
 
+def quickstart_path(dev):
+    """Phase 5: the quickstart path on the card, with the launch counts set
+    to 0 just before it and read just after.  Returns the counts."""
+    from repro_torch import quickstart
+    from repro_torch.api import BACKENDS, get_graph, get_net, silicon_report
+    from repro_torch.data.pipeline import DVSEventPipeline
+    from repro_torch.kernels.ternary_conv2d import ternary_conv2d_cuda
+    from repro_torch.kernels.ternary_matmul import ternary_matmul_cuda
+    from repro_torch.sim import reconcile
+
+    ternary_conv2d_cuda.launches = 0
+    ternary_matmul_cuda.launches = 0
+    rc = quickstart.main(["--device", "cuda", "--seed", str(SEED)])
+    launches = {"ternary_conv2d": ternary_conv2d_cuda.launches,
+                "ternary_matmul": ternary_matmul_cuda.launches}
+    if rc != 0:
+        fail(f"repro_torch.quickstart exited {rc} on the card")
+    if launches["ternary_matmul"] < 1 or launches["ternary_conv2d"] < 1:
+        fail(f"the quickstart did not go through both kernels: {launches}")
+
+    # two full-width dvs_cnn_tcn clips on every deploy backend
+    prog = get_net("dvs_cnn_tcn")
+    frames, _ = DVSEventPipeline(2, steps=N_FRAMES, hw=prog.graph.input_hw[0],
+                                 seed=SEED).next_batch()
+    clips = torch.from_numpy(frames).to(dev)
+    deployed = prog.quantize(prog.init(torch.Generator().manual_seed(SEED), device=dev),
+                             calib=clips)
+    logits = {b: deployed.forward(clips, backend=b) for b in BACKENDS}
+    for b, y in logits.items():
+        if not torch.equal(y, logits["ref"]):
+            fail(f"dvs_cnn_tcn: {b} != ref on the card: "
+                 f"max|diff|={(y - logits['ref']).abs().max().item()}")
+    session = deployed.stream(batch=1, backend="bitsim")
+    for t in range(N_FRAMES):
+        streamed = session.step(clips[:1, t])
+    if not torch.equal(streamed, logits["bitsim"][:1]):
+        fail("dvs_cnn_tcn: bitsim stream != bitsim batch forward")
+
+    # the silicon model: every committed row of the reference's sweep
+    rows = json.loads((REPO / "BENCH_silicon.json").read_text())["results"]
+    for r in rows:
+        g = get_graph(r["net"])
+        rep = silicon_report(g, v=r["v"], source=r["source"])
+        rec = reconcile(g)
+        got = {
+            "cycles": rep.ideal.cycles, "ideal_energy_uj": rep.ideal.energy_j * 1e6,
+            "ideal_inf_per_s": rep.ideal.inf_per_s, "energy_uj": rep.energy_uj,
+            "inf_per_s": rep.inf_per_s, "calibrated": rep.calibrated is not None,
+            "analytic_schedulable": rec["analytic_schedulable"],
+            "divergence_at_0v5": rec["divergence"], "stall_cycles": rec["stall_cycles"],
+        }
+        diff = {key: (r[key], val) for key, val in got.items() if r[key] != val}
+        if diff:
+            fail(f"silicon model != reference at {r['net']} {r['v']} V {r['source']}: {diff}")
+    cifar = silicon_report(get_graph("cifar10_tnn"), v=0.5)
+    print(f"[chip_smoke] quickstart: OK on the card; {launches} launches; "
+          f"dvs_cnn_tcn fused == kernel == ref == bitsim on 2 clips x {N_FRAMES} frames, "
+          f"bitsim stream == batch; {len(rows)} BENCH_silicon.json rows reproduced exactly "
+          f"(CIFAR {cifar.energy_uj:.2f} uJ, {cifar.inf_per_s:.0f} inf/s)", flush=True)
+    return launches
+
+
 def main() -> int:
     # phase 1: device
     if not torch.cuda.is_available():
@@ -344,21 +538,38 @@ def main() -> int:
     print(f"[chip_smoke] build: {len(sources)} source(s) in "
           f"{time.perf_counter() - t0:.1f} s ({Path(build.find_nvcc()).name})", flush=True)
 
-    # phase 3: kernel against its plain version, then times
+    # phase 3: each kernel against its plain version, then times
     max_abs_err = check_kernel(dev)
     total, per_shape = time_kernel(dev)
+    mm_err_f32, mm_err_bf16 = check_matmul(dev)
+    mm_rows = time_matmul(dev)
 
-    # phase 4: the main path
+    # phase 4: the serving path
     launches, serving = serve_main_path(dev)
 
-    # phase 5: results
+    # phase 5: the quickstart path
+    qs_launches = quickstart_path(dev)
+
+    # phase 6: results
+    mm = mm_rows[0]  # the quickstart's launch: 64x2048x512 float32
     kernels = {"kernels": [{
         "name": "ternary_conv2d", "route": "cuda", "source": K1_SOURCE,
         "replaces": K1_REPLACES, "launches": launches, "max_abs_err": max_abs_err,
         "ms": total["ms"], "plain_ms": total["plain_ms"], "bound_ms": total["bound_ms"],
         "bound_by": total["bound_by"], "library_ms": total["library_ms"],
+        "launches_cover": "the serving path (16 streams x 8 frames, pool 8)",
+        "launches_quickstart": qs_launches["ternary_conv2d"],
         "times_cover": "the 9 launches of one pool tick at pool size 8 (sum)",
         "shapes": per_shape,
+    }, {
+        "name": "ternary_matmul", "route": "cuda", "source": K2_SOURCE,
+        "replaces": K2_REPLACES, "launches": qs_launches["ternary_matmul"],
+        "max_abs_err": mm_err_f32, "max_abs_err_bf16": mm_err_bf16,
+        "ms": mm["ms"], "plain_ms": mm["plain_ms"], "bound_ms": mm["bound_ms"],
+        "bound_by": mm["bound_by"], "library_ms": mm["library_ms"],
+        "launches_cover": "the quickstart path",
+        "times_cover": "one launch at the quickstart shape 64x2048x512, float32",
+        "shapes": mm_rows,
     }]}
     print(json.dumps({"serving": serving}), flush=True)
     print(json.dumps(kernels), flush=True)

@@ -5,24 +5,31 @@ Counterpart of `repro.api.program`:
     prog     = get_net("dvs_cnn_tcn")                       # repro_torch.api.registry
     params   = prog.init(torch.Generator().manual_seed(0))  # device="cuda"
     deployed = prog.quantize(params, calib=frames)          # packed 2-bit weights
-    logits   = deployed.forward(frames, backend="fused")    # | "ref"
+    logits   = deployed.forward(frames, backend="fused")    # | "kernel" | "ref" | "bitsim"
     session  = deployed.stream(batch=4)                     # TCN ring memory
     pool     = deployed.serve(pool_size=8)                  # continuous batching
+    report   = deployed.silicon_report(v=0.5)               # cycles/energy vs Table 1
 
-Backends of the port so far:
+Backends:
     fused   one launch of the fused ternary conv per layer
             (conv + scale + ternarize (+ max-pool), int8 trits between
             layers): the hand-written CUDA kernel for tensors on the card,
             its plain PyTorch version for tensors on the CPU — the deploy
             default for serving
+    kernel  the same kernel unfused (scaled float32 accumulator out),
+            float activations re-ternarized, pooled and strided between
+            layers — the reference's "pallas" backend
     ref     the `kernels.ref` oracle (unpack + `F.conv2d`), float activations
             re-ternarized between layers — the semantics anchor
+    bitsim  `repro_torch.sim` plan executor: the graph lowered to an
+            `ExecutionPlan` (OCU/C_in tiles, trit-packed weight-memory
+            images) and run tile by tile
 
-Both produce identical logits — bit-exact whenever every inter-layer tensor
-is ternary or a dyadic rational of ternary values (true for all registry
-nets), since both then accumulate exactly in float32 under any summation
-order.  The reference's other backends ("pallas", "interpret", "bitsim") and
-`silicon_report` wait for later parts of the port; `check_backend` says so.
+All four produce identical logits — bit-exact whenever every inter-layer
+tensor is ternary or a dyadic rational of ternary values (true for all
+registry nets), since all then accumulate exactly in float32 under any
+summation order.  The reference's "interpret" backend (the Pallas
+interpreter) has no counterpart; `check_backend` says so.
 
 The QAT half here is **forward only** (`quantize(calib=...)` needs the
 fake-quant forward to record the batch-norm statistics); training arrives
@@ -38,6 +45,7 @@ import torch.nn.functional as F
 
 from repro_torch.api import quantize as q
 from repro_torch.api.graph import CutieGraph
+from repro_torch.core import cutie_arch as arch
 from repro_torch.core.tcn import (
     StreamState,
     TCNStream,
@@ -57,12 +65,11 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels.ops import ternary_conv2d
 from repro_torch.kernels.ref import exact_float32, ternary_conv2d_ref
 
-BACKENDS = ("fused", "ref")
-_LATER_BACKENDS = {
-    "pallas": "the unfused kernel backend is not part of the port yet",
+BACKENDS = ("fused", "kernel", "ref", "bitsim")
+SILICON_SOURCES = ("analytic", "sim")
+_REFERENCE_ONLY_BACKENDS = {
+    "pallas": "the reference's Pallas kernel backend is called 'kernel' here",
     "interpret": "the Pallas interpreter has no counterpart in the port",
-    "bitsim": "the plan-executor backend arrives with the simulator port "
-              "(ROADMAP.md, queue 1: sim + cutie_arch)",
 }
 _BN_EPS = 1e-6
 
@@ -71,10 +78,10 @@ def check_backend(backend: str) -> None:
     """THE backend validation — every entry point routes through here."""
     if backend in BACKENDS:
         return
-    if backend in _LATER_BACKENDS:
+    if backend in _REFERENCE_ONLY_BACKENDS:
         raise ValueError(
             f"backend {backend!r} is not available in repro_torch: "
-            f"{_LATER_BACKENDS[backend]}; expected one of {BACKENDS}"
+            f"{_REFERENCE_ONLY_BACKENDS[backend]}; expected one of {BACKENDS}"
         )
     raise ValueError(f"unknown backend {backend!r}; expected one of {BACKENDS}")
 
@@ -114,11 +121,17 @@ def _dispatch_conv(x, packed, eff_scale, backend: str, *, threshold=0.5, pool: i
     """One SAME ternary conv through the selected backend.  ``x`` must be
     channel-padded to 4 * packed.shape[2].  "fused" runs the whole CUTIE
     layer — conv, per-OCU scale, threshold unit, optional max-pool — in one
-    launch and emits int8 trits; "ref" returns the scaled float accumulator
-    and leaves ternarize/pool to the caller."""
+    launch and emits int8 trits; "kernel" (the same kernel unfused) and
+    "ref" return the scaled float32 accumulator and leave ternarize/pool to
+    the caller.  "bitsim" walks the plan's tiles itself and never comes
+    here."""
     check_backend(backend)
     if backend == "ref":
         return ternary_conv2d_ref(x, packed, eff_scale)
+    if backend == "kernel":
+        return ternary_conv2d(x, packed, eff_scale, out_dtype=torch.float32)
+    if backend != "fused":
+        raise ValueError(f"backend {backend!r} has no single-conv dispatch")
     return ternary_conv2d(
         x, packed, eff_scale, fuse_ternary=True, threshold=threshold,
         fuse_pool=pool, out_dtype=torch.int8,
@@ -361,6 +374,17 @@ class CutieProgram:
                 entry["bn_sd"] = sd
         return DeployedProgram(g, tables)
 
+    # -- silicon model -----------------------------------------------------
+
+    def silicon_report(
+        self, v: float = 0.5, hw: Optional[arch.CutieHW] = None,
+        source: str = "analytic",
+    ) -> "SiliconReport":
+        """Cycles/energy for this graph at supply ``v`` — see module-level
+        `silicon_report`.  ``source="sim"`` prices the `repro_torch.sim`
+        execution plan instead of the closed formula."""
+        return silicon_report(self.graph, v=v, hw=hw, source=source)
+
 
 @dataclasses.dataclass
 class DeployedProgram:
@@ -418,6 +442,38 @@ class DeployedProgram:
         self._consts = consts
         return consts
 
+    # -- the plan (repro_torch.sim) ----------------------------------------
+
+    def _bitsim(self):
+        """The lazily built `repro_torch.sim.PlanExecutor` behind
+        backend="bitsim": graph lowered to an `ExecutionPlan`, packed tables
+        bound as weight-memory images.  Cached — lowering is pure and the
+        tables are immutable once quantized."""
+        ex = getattr(self, "_bitsim_exec", None)
+        if ex is None:
+            from repro_torch.sim import PlanExecutor
+
+            ex = self._bitsim_exec = PlanExecutor.for_deployed(self)
+        return ex
+
+    def execution_plan(self):
+        """This program's compiled `ExecutionPlan` (see `repro_torch.sim.plan`)."""
+        return self._bitsim().plan
+
+    @property
+    def kernel_blocks(self):
+        """Plan-driven kernel blocks, ``{"conv": [KernelBlock], "tcn": [...]}``
+        in table order (`kernels.autotune.kernel_block_plan` over the lowered
+        plan).  In the port each ``block_cout`` is the layer's logical OCU
+        tile: the CUDA kernels choose their own tiles and ignore it.  Cached."""
+        kb = getattr(self, "_kernel_blocks", None)
+        if kb is None:
+            from repro_torch.kernels.autotune import kernel_block_plan
+            from repro_torch.sim.plan import lower
+
+            kb = self._kernel_blocks = kernel_block_plan(lower(self.graph))
+        return kb
+
     # -- per-layer-kind execution -----------------------------------------
 
     def _fc(self, x: torch.Tensor) -> torch.Tensor:
@@ -439,6 +495,8 @@ class DeployedProgram:
         epilogue) emitting int8 trits — the pool LayerSpec it absorbed is
         then skipped here."""
         check_backend(backend)
+        if backend == "bitsim":
+            return self._bitsim().spatial_forward(x)
         g = self.graph
         consts = self._constants()["conv"]
         ci = 0
@@ -478,6 +536,8 @@ class DeployedProgram:
         """TCN head over the ordered window [B, T, C] -> logits, via the §4
         mapping + the 2-D conv kernel (SAME pad adjusted to causal)."""
         check_backend(backend)
+        if backend == "bitsim":
+            return self._bitsim().temporal_forward(feats)
         g = self.graph
         x = feats
         consts = self._constants()["tcn"]
@@ -550,6 +610,19 @@ class DeployedProgram:
 
         return SessionPool(self, pool_size, backend=backend)
 
+    # -- silicon model -----------------------------------------------------
+
+    def silicon_report(
+        self, v: float = 0.5, hw: Optional[arch.CutieHW] = None,
+        source: str = "analytic",
+    ) -> "SiliconReport":
+        """Cycles/energy for the deployed graph at supply ``v`` — see
+        module-level `silicon_report`.  ``source="sim"`` prices the same
+        `ExecutionPlan` the bitsim backend executes, with dynamic energy
+        priced on THIS program's packed weight images (sparsity-aware)."""
+        memory = self._bitsim().memory if source == "sim" else None
+        return silicon_report(self.graph, v=v, hw=hw, source=source, memory=memory)
+
 
 class StreamSession:
     """Stateful wrapper over the TCN ring memory (24 x C x 2 bit SCM).
@@ -616,3 +689,145 @@ class StreamSession:
                 f"{tuple(expect)}"
             )
         self.state = state
+
+
+# ---------------------------------------------------------------------------
+# Graph -> analytical silicon model (core.cutie_arch)
+# ---------------------------------------------------------------------------
+
+def export_conv_layers(
+    graph: CutieGraph,
+    repeat_frontend: Optional[int] = None,
+    hw: Optional[arch.CutieHW] = None,
+) -> List[arch.ConvLayer]:
+    """Lower the graph to the layer list of the analytic silicon model: a
+    view over THE one lowering path (`sim.lower` -> `ExecutionPlan
+    .to_arch_layers`).  Temporal graphs count ``passes_per_inference``
+    frontend passes per classification; TCN layers appear in their §4
+    mapped 2-D form."""
+    from repro_torch.sim.plan import lower
+
+    return lower(graph, hw).to_arch_layers(repeat_frontend)
+
+
+@dataclasses.dataclass
+class SiliconReport:
+    """The closed loop: graph -> cycles/energy -> paper's measured corner.
+
+    ``ideal`` is the uncalibrated schedule — the analytic pixel-per-cycle
+    formula (``source="analytic"``) or the sim plan's counted cycles
+    (``source="sim"``); ``calibrated`` projects it onto the measured silicon
+    through the published (inf/s, uJ) corner, and
+    ``calibration.consistent`` is the model's validity check."""
+
+    graph_name: str
+    v: float
+    ideal: arch.NetReport
+    calibration: Optional[arch.Calibration]
+    calibrated: Optional[arch.NetReport]
+    source: str = "analytic"
+
+    @property
+    def report(self) -> arch.NetReport:
+        return self.calibrated if self.calibrated is not None else self.ideal
+
+    @property
+    def energy_uj(self) -> float:
+        return self.report.energy_j * 1e6
+
+    @property
+    def inf_per_s(self) -> float:
+        return self.report.inf_per_s
+
+    @property
+    def eff_topsw(self) -> float:
+        return self.report.eff_topsw_paper
+
+    @property
+    def peak_eff_topsw(self) -> float:
+        return self.ideal.peak_layer_eff_topsw_paper
+
+    def summary(self) -> str:
+        """Human-readable report block (the launchers print this)."""
+        lines = [
+            f"[{self.graph_name} @ {self.v:.2f} V, {self.source} schedule]",
+            f"  peak efficiency : {self.peak_eff_topsw:8.0f} TOp/s/W",
+            f"  energy/inference: {self.energy_uj:8.2f} uJ"
+            + ("" if self.calibrated is not None else " (ideal schedule)"),
+            f"  inference rate  : {self.inf_per_s:8.0f} inf/s",
+            f"  avg efficiency  : {self.eff_topsw:8.1f} TOp/s/W",
+        ]
+        if self.calibration is not None:
+            lines.append(
+                f"  calibration     : cycle x{self.calibration.cycle_overhead:.2f}, "
+                f"energy x{self.calibration.energy_overhead:.2f}, "
+                f"consistent={self.calibration.consistent}"
+            )
+        return "\n".join(lines)
+
+
+def silicon_report_from_plan(
+    plan, v: float = 0.5, hw: Optional[arch.CutieHW] = None,
+    source: str = "analytic", memory=None,
+    paper_energy_uj: Optional[float] = None,
+    paper_inf_per_s: Optional[float] = None,
+) -> SiliconReport:
+    """The graph-free Table-1 loop: price a compiled `ExecutionPlan`.
+
+    ``source="sim"`` counts the plan's schedule (stall counters included);
+    a `repro_torch.sim.WeightMemory` in ``memory`` additionally prices
+    dynamic energy on the program's measured weight sparsity.
+    ``source="analytic"`` projects the plan onto the closed formula.  The
+    paper corner (when given) calibrates at the 0.5 V measurement point."""
+    if source not in SILICON_SOURCES:
+        raise ValueError(
+            f"unknown silicon source {source!r}; expected one of {SILICON_SOURCES}"
+        )
+    hw = hw or arch.CutieHW()
+    if source == "sim":
+        from repro_torch.sim import evaluate_plan
+
+        def _eval(at_v: float) -> arch.NetReport:
+            return evaluate_plan(plan, hw, at_v, memory=memory)
+    else:
+        layers = plan.to_arch_layers()
+
+        def _eval(at_v: float) -> arch.NetReport:
+            return arch.evaluate_network(plan.graph_name, layers, hw, at_v)
+
+    ideal = _eval(v)
+    cal = calibrated = None
+    if paper_energy_uj is not None and paper_inf_per_s is not None:
+        cal = arch.calibrate(_eval(0.5), paper_inf_per_s, paper_energy_uj)
+        calibrated = arch.apply_calibration(ideal, cal)
+    return SiliconReport(
+        graph_name=plan.graph_name, v=v, ideal=ideal, calibration=cal,
+        calibrated=calibrated, source=source,
+    )
+
+
+def silicon_report(
+    graph: CutieGraph, v: float = 0.5, hw: Optional[arch.CutieHW] = None,
+    source: str = "analytic", memory=None,
+) -> SiliconReport:
+    """Evaluate the CUTIE silicon model on this graph and, when the graph
+    carries a published corner, calibrate against it at 0.5 V.
+
+    ``source``: ``"analytic"`` is the closed pixel-per-cycle formula over
+    `export_conv_layers`; ``"sim"`` lowers the graph to its
+    `repro_torch.sim.ExecutionPlan` and ingests the simulator's per-layer
+    cycle counters — same electrical model, auditable schedule.  ``memory``
+    (a `repro_torch.sim.WeightMemory`, sim source only) switches dynamic
+    energy to the program's measured weight sparsity."""
+    if source not in SILICON_SOURCES:
+        raise ValueError(
+            f"unknown silicon source {source!r}; expected one of {SILICON_SOURCES}"
+        )
+    hw = hw or arch.CutieHW()
+    from repro_torch.sim.plan import lower
+
+    return silicon_report_from_plan(
+        lower(graph, hw), v=v, hw=hw, source=source, memory=memory,
+        paper_energy_uj=graph.paper_energy_uj,
+        paper_inf_per_s=graph.paper_inf_per_s,
+    )

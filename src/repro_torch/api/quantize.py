@@ -2,8 +2,8 @@
 
 All helpers return ``(packed_uint8, scale)`` where ``unpack(packed) * scale``
 approximates the input weights (TWN: per-group threshold nu * E|w|).  The
-packed bytes are not a storage-only format: the conv kernel consumes them
-verbatim as operands and decodes each 2-bit field in the kernel.
+packed bytes are not a storage-only format: the conv and matmul kernels consume them
+verbatim as operands and decode each 2-bit field in the kernel.
 """
 from __future__ import annotations
 
@@ -64,6 +64,14 @@ def quantize_pad_pack(
     pack 4 trits/byte along it."""
     t, alpha = ternary_quantize_weights(w, nu=nu, axis=reduce_axes)
     return pack_ternary(_pad_axis_to_4(t, pack_axis), axis=pack_axis), alpha.reshape(-1)
+
+
+def quantize_pack_matmul_weights(
+    w: torch.Tensor, nu: float = TERNARY_NU_DEFAULT
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """[K, N] float -> ([ceil(K/4), N] uint8 packed along K, [N] per-column
+    scale) — the operands of `kernels.ops.ternary_matmul`."""
+    return quantize_pad_pack(w, reduce_axes=0, pack_axis=0, nu=nu)
 
 
 def quantize_pack_conv_weights(

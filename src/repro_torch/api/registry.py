@@ -10,7 +10,7 @@ returned `CutieProgram`.  Seeded with the paper's two benchmark networks:
     frontend into a 24-step TCN memory, 4 dilated TCN layers, 12-class head).
 
 Plus ``cifar10_tnn_wide`` — a 192-channel, 5x5-stem variant whose schedule
-(C_in/OCU tiling, multi-pass windows) only the `repro.sim` execution plan
+(C_in/OCU tiling, multi-pass windows) only the `repro_torch.sim` execution plan
 can express; the analytic formula misprices it (see docs/simulator.md).
 
 And ``kws_tcn`` — a keyword-spotting TCN in the style of [10]: a strided
@@ -39,17 +39,7 @@ from repro_torch.api.graph import (
     tcn,
 )
 from repro_torch.api.program import CutieProgram
-
-# The paper-reported corners the graphs calibrate against — literal copies of
-# the `PAPER` entries of the reference's `core/cutie_arch.py` (that module is
-# ported with the silicon model).
-PAPER = dict(
-    cifar_energy_uj=2.72,
-    cifar_inf_per_s=3200.0,
-    dvs_energy_uj=5.5,
-    dvs_inf_per_s=8000.0,
-    tcn_steps=24,
-)
+from repro_torch.core.cutie_arch import PAPER
 
 GraphFactory = Callable[[], CutieGraph]
 
@@ -185,7 +175,7 @@ def cifar10_tnn_wide_graph(
     The closed-form silicon model prices every layer at one pixel/cycle
     with a 3x3 window — it cannot express the extra window passes a 5x5
     kernel needs, and only coarsely tiles the >96-channel layers.  The
-    `repro.sim` `ExecutionPlan` schedules both explicitly (per-tile
+    `repro_torch.sim` `ExecutionPlan` schedules both explicitly (per-tile
     `TileAssign`s, ``window_passes`` in the counters), which is the point
     of this net: `sim.reconcile` reports ``analytic_schedulable=False``
     and a large, *documented* cycle divergence (see docs/simulator.md).

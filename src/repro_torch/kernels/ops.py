@@ -1,18 +1,21 @@
-"""Public wrapper over the fused ternary conv — counterpart of
-`repro.kernels.ops.ternary_conv2d`.
+"""Public wrappers over the packed kernels — counterpart of
+`repro.kernels.ops` (`ternary_matmul`, `ternary_conv2d`).
 
-Handles the channel pad to the 4-trit pack quantum, the scalar-threshold
-splat / per-channel ``[C_out]`` vector check, and the dispatch:
+They handle the pad to the 4-trit pack quantum (K for the matmul, C_in for
+the conv), the conv's scalar-threshold splat / per-channel ``[C_out]``
+vector check, and the dispatch by the tensor's device:
 
-  * a CPU tensor goes to the plain PyTorch version
-    (`ternary_conv2d_native`);
-  * a CUDA tensor launches the hand-written Hopper kernel
-    (`ternary_conv2d_cuda`) **or raises** — it never reaches the plain
-    version, and a failed build or launch is not caught.
+  * a CPU tensor goes to the plain PyTorch version (``*_native``);
+  * a CUDA tensor launches the hand-written Hopper kernel (``*_cuda``)
+    **or raises** — it never reaches the plain version, and a failed build
+    or launch is not caught;
+  * any other device raises.
 
-Ragged C_out needs no padding here: the kernel masks its last channel tile
-itself.  There is no ``block_cout`` argument — that was the TPU kernel's
-lane tiling; the CUDA kernel picks its own tile.
+Ragged M, N and C_out need no padding here: the kernels mask their last
+tiles themselves.  The reference's TPU grid knobs are dropped — ``block_m``
+/ ``block_n`` / ``block_k`` / ``block_cout`` (the Pallas block shapes; the
+CUDA kernels pick their own tiles), ``impl`` and ``interpret`` (the Pallas
+interpreter has no counterpart: the device of the input decides).
 """
 from __future__ import annotations
 
@@ -23,6 +26,40 @@ from repro_torch.kernels.ternary_conv2d import (
     ternary_conv2d_cuda,
     ternary_conv2d_native,
 )
+from repro_torch.kernels.ternary_matmul import (
+    ternary_matmul_cuda,
+    ternary_matmul_native,
+)
+
+
+def ternary_matmul(
+    x: torch.Tensor,
+    w_packed: torch.Tensor,
+    scale: torch.Tensor,
+) -> torch.Tensor:
+    """y[..., N] = x[..., K] @ select_decode(w_packed)[K, N] * scale[N],
+    float32 accumulation, output in x's dtype (float32 or bfloat16).
+    ``w_packed`` is [ceil(K/4), N] uint8 packed along K; x is zero-padded up
+    to 4 * K/4 (the pack quantum only ever pads, never truncates)."""
+    *lead, k = x.shape
+    k4, n = w_packed.shape
+    if 4 * k4 < k:
+        raise ValueError(
+            f"packed weight carries K={4 * k4} < input K={k}: the pack "
+            "quantum only ever pads, never truncates"
+        )
+    x2 = x.reshape(-1, k)
+    if 4 * k4 != k:
+        x2 = F.pad(x2, (0, 4 * k4 - k))
+    sc = scale.reshape(-1)
+    if x.device.type == "cpu":
+        y = ternary_matmul_native(x2, w_packed, sc, out_dtype=x.dtype)
+    elif x.device.type == "cuda":
+        y = ternary_matmul_cuda(x2.contiguous(), w_packed.contiguous(),
+                                sc.to(torch.float32).contiguous(), out_dtype=x.dtype)
+    else:
+        raise ValueError(f"ternary_matmul has no implementation for device {x.device}")
+    return y.reshape(*lead, n)
 
 
 def ternary_conv2d(

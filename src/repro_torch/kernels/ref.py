@@ -1,8 +1,8 @@
-"""Plain-PyTorch oracle for the fused ternary conv — counterpart of
-`repro.kernels.ref.ternary_conv2d_ref`.
+"""Plain-PyTorch oracles for the packed kernels — counterpart of
+`repro.kernels.ref` (`ternary_matmul_ref`, `ternary_conv2d_ref`).
 
-It defines the semantics; the kernel and its tap-walk plain version must
-match it bit-exactly on ternary/dyadic data.  The exactness argument
+They define the semantics; each kernel and its plain version must match
+them bit-exactly on ternary/dyadic data.  The exactness argument
 (integer-valued partial sums are exact in float32 under any order) only
 holds for true float32 arithmetic, so `exact_float32` switches off every
 reduced-precision or transform-domain convolution path around the call:
@@ -34,6 +34,16 @@ def exact_float32():
             yield
     finally:
         torch.backends.cuda.matmul.allow_tf32 = prev_matmul
+
+
+def ternary_matmul_ref(x: torch.Tensor, w_packed: torch.Tensor,
+                       scale: torch.Tensor) -> torch.Tensor:
+    """y = x @ unpack(w_packed, axis=0) * scale (scale broadcast over N),
+    a float32 product without TF32, cast to x's dtype."""
+    w = unpack_ternary(w_packed, axis=0).to(torch.float32)
+    with exact_float32():
+        y = x.to(torch.float32) @ w
+    return (y * scale.reshape(1, -1).to(torch.float32)).to(x.dtype)
 
 
 def ternary_conv2d_ref(

@@ -17,7 +17,10 @@ non-finite logits, or when a stream did not complete.
 
 ``--device`` defaults to ``cuda``; without a CUDA device that is an error,
 not a move to the CPU.  The default backend is "fused": conv + threshold
-(+ pool) in one kernel launch per layer, int8 trits between layers.
+(+ pool) in one kernel launch per layer, int8 trits between layers;
+``--backend`` takes every deploy backend (``kernel``, ``ref``, ``bitsim``).
+After the run it prints what the CUTIE silicon model says of the same
+program at 0.5 V (`DeployedProgram.silicon_report`).
 """
 from __future__ import annotations
 
@@ -90,6 +93,13 @@ def serve_dvs(args) -> int:
         deployed, results, frames, args.backend,
         check=min(args.check_streams, n_streams),
     )
+    # the silicon model's view of the same program (repro_torch.sim)
+    rep = deployed.silicon_report(v=0.5)
+    sensor_fps = rep.inf_per_s * g.passes_per_inference
+    print(f"[serve-dvs] CUTIE @0.5V would run each sensor at "
+          f"{sensor_fps:.0f} frames/s, {rep.energy_uj:.2f} uJ/classification "
+          f"({args.pool} sensors -> {args.pool * sensor_fps:.0f} frames/s "
+          f"aggregate)")
     if not finite:
         print("[serve-dvs] FAIL: non-finite logits", file=sys.stderr)
         return 1

@@ -224,11 +224,14 @@ def test_registry_and_graphs_match_reference():
 
 
 def test_backends_and_entry_point_errors():
-    assert tapi.BACKENDS == ("fused", "ref")
-    tapi.check_backend("fused")
-    for later in ("pallas", "interpret", "bitsim"):
+    assert tapi.BACKENDS == ("fused", "kernel", "ref", "bitsim")
+    for backend in tapi.BACKENDS:
+        tapi.check_backend(backend)
+    for reference_only in ("pallas", "interpret"):
         with pytest.raises(ValueError, match="not available in repro_torch"):
-            tapi.check_backend(later)
+            tapi.check_backend(reference_only)
+    with pytest.raises(ValueError, match="called 'kernel' here"):
+        tapi.check_backend("pallas")
     with pytest.raises(ValueError, match="unknown backend"):
         tapi.check_backend("cuda")
     prog = tapi.get_net("cifar10_tnn_smoke")

@@ -319,7 +319,7 @@ class TestSessionPool:
         with pytest.raises(ValueError, match="pool_size"):
             SessionPool(deployed, 0)
         with pytest.raises(ValueError, match="not available in repro_torch"):
-            SessionPool(deployed, 2, backend="bitsim")
+            SessionPool(deployed, 2, backend="interpret")
 
     def test_window_warm_per_slot(self, deployed):
         T = deployed.graph.tcn_steps
@@ -474,7 +474,7 @@ def test_launch_serve_edge_cases(capsys):
     with pytest.raises(SystemExit):
         launch_serve.main(["--device", "cpu"])          # no --dvs
     with pytest.raises(SystemExit):
-        launch_serve.main(["--dvs", "--backend", "bitsim", "--device", "cpu"])
+        launch_serve.main(["--dvs", "--backend", "pallas", "--device", "cpu"])
 
 
 def test_launch_serve_refuses_missing_gpu():
