@@ -7,40 +7,57 @@
 //
 //   y[b,oy,ox,n] = sum_{dy,dx,c} x[b, oy+dy-KH/2, ox+dx-KW/2, c] * t[dy,dx,c,n]
 //
-// with t in {-1,0,+1} decoded in the kernel from the quantizer's 2-bit packed
+// with t in {-1,0,+1} decoded in registers from the quantizer's 2-bit packed
 // bytes w_packed[KH,KW,C_in/4,C_out] (plus = b1, minus = NOR(b1,b0), operand =
 // plus - minus), then y*scale[n]; optionally the ThFU ternarize
 // |y| > thr[n] ? sign(y) : 0 (strict >); optionally a p x p max-pool; cast.
 //
-// Where the TPU kernel keeps one sample's whole padded image and an
-// [H*W, block_cout] accumulator in VMEM, a block here owns one
-// (sample, tile of 64 output pixels, tile of 32 output channels):
-//   * the pixel tile is th x tw with th*tw <= 64, aligned to the pool window so
-//     the p x p max never leaves the block; ragged edges are masked;
-//   * C_in is walked in chunks of 16: per chunk the block decodes its slice of
-//     the packed bytes ONCE into shared memory (float operands) and stages the
-//     (th+KH-1) x (tw+KW-1) input patch with the SAME zero border, converted to
-//     float in registers on the way in (float or int8 input);
-//   * 256 threads, each holding 2 pixels x 4 channels of float32 accumulators
-//     (a warp = one group of 4 channels x 32 pixels, so the weight load is a
-//     broadcast), plain FMAs on the CUDA cores.  With ternary or dyadic data every partial
-//     sum is an integer (or a multiple of 1/4) and exact in float32 under any
-//     summation order, so the result is bit-identical to the plain version;
-//   * the epilogue runs on registers (pooled variants stage the ternarized tile
-//     in shared memory to take the window max); the float32 accumulator never
-//     reaches device memory on the fused variants.
-//
 // Bound on this card: at the serving shapes (at most 8x64x64x64 outputs per
-// launch) the work is tens of microseconds of CUDA-core FMAs at best and a few
-// hundred kilobytes of traffic, so a launch is bounded by operations, then by
-// launch latency — not by bytes.  This first version does not use the tensor
-// cores (int8 x int8 -> int32 mma is the later step).
+// launch) the work is 0.01-2.3 us at the tensor cores' int8 / CUDA cores'
+// float32 peak and a few hundred kilobytes of traffic, so a launch is bounded
+// by latency: the first version of this kernel took 23-48 us per launch, with
+// 24-256 blocks each walking C_in in decode -> stage -> barrier -> FMA
+// chunks.  This design is an implicit GEMM on the tensor cores:
 //
-// The three TCONV_ABLATE_* macros compile one phase of the main loop out (weight
-// decode, patch staging, FMA walk).  They exist for
-// benchmarks/kernel_ablate_torch.py, which times the variants to show where a
-// launch's time goes; the results of an ablated build are wrong by design and
-// the package never defines them.
+//   * GEMM view.  M = output pixels, N = output channels, and the reduction
+//     index k = (tap, channel) flattened with the channel fastest, padded with
+//     zero trits to the mma depth (32 for int8, 16 for bf16).  Because C_in is
+//     a multiple of 4, four consecutive k lie inside one tap and are one
+//     packed byte: the weight matrix is w_packed itself, viewed as
+//     [KH*KW*C_in/4, C_out] bytes, and a B fragment register is one byte
+//     (int8) or half a byte (bf16) of it (ternary_mma.cuh).  Small C_in
+//     (conv0 and the 5x5 stem have 4) pads the whole K = taps*C_in once, not
+//     each tap.
+//   * int8 input (the ternary-activation layers: 7 of a pool tick's 9
+//     launches): `mma.sync m16n8k32 s8.s8 -> s32` on the trits, exact by
+//     construction; the int32 sum converts exactly to float32, so the
+//     epilogue sees the same value as the plain version.  float32 input (the
+//     event frames, the pooled TCN window, the unfused backend's float maps):
+//     the exact three-way bf16 split and `m16n8k16`, three mmas per fragment,
+//     one when no lane of the warp has a nonzero mid or lo term (bf16-exact
+//     data, as the serving path's binary frames and quarter-multiples are).
+//   * Stage once.  A block owns (sample, a tile of <= 64 output pixels aligned
+//     to the pool window, 32 output channels).  It copies its whole packed
+//     weight slice ([KH*KW*C_in/4, 32] bytes) and its input patch (the tile
+//     plus the SAME border, zero-filled outside the image) into shared memory
+//     with `cp.async`, and waits at one barrier.  Nothing is decoded into
+//     shared memory: the bytes are expanded in registers at fragment load.
+//     A small table maps each k-group to its (tap, channel) offset in the
+//     patch, so the im2col gather is one shared load per A register.
+//   * Occupancy.  Four warps; a warp's mma tile is 16 pixels x 32 channels.
+//     A 64-pixel tile gives each warp its own 16 pixels; a 32- or 16-pixel
+//     tile splits the reduction across 2 or 4 warps, which sum their partial
+//     tiles in shared memory in warp order (no atomics).  The host-side plan
+//     (`conv_plan` in kernels/ternary_conv2d.py) takes the largest tile that
+//     still gives >= 132 blocks, else the smallest.
+//   * Epilogue from shared memory: sum of the warps' partials -> *scale ->
+//     ThFU ternarize -> [p x p max] -> cast, written channel-contiguous; the
+//     accumulator never reaches device memory.
+//
+// The TCONV_ABLATE_* macros compile one phase out (operand staging, fragment
+// decode, mma walk, epilogue).  They exist for benchmarks/kernel_ablate_torch.py,
+// which times the variants to show where a launch's time goes; an ablated
+// build is wrong by design and the package never defines them.
 //
 // Interface: plain C, loaded with ctypes.  The launcher enqueues on the given
 // stream, does not synchronise, allocates nothing and returns
@@ -50,38 +67,125 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
+#include "ternary_mma.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kTilePix = 64;    // output pixels per block (pre-pool)
-constexpr int kTileN = 32;      // output channels per block
-constexpr int kChunkC = 16;     // input channels staged per step
-constexpr int kPatchStride = kChunkC + 1;  // +1 float: neighbouring pixels hit different banks
-constexpr int kOutStride = kTileN + 1;     // same for the pooled variants' staged output tile
+constexpr int kThreads = 128;   // four warps
+constexpr int kWarps = kThreads / 32;
+constexpr int kTilePix = 64;    // output pixels per block at most (pre-pool)
+constexpr int kTileN = 32;      // output channels per block: four n8 subtiles
+constexpr int kPartStride = kTileN + 8;  // words per row of a warp's partial tile
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(int8_t v) { return static_cast<float>(v); }
+__host__ __device__ inline int round16(int v) { return (v + 15) & ~15; }
 
-// acc[2 pixels][4 channels] += x * w for one input channel: one 16-byte load
-// of four decoded weights, eight FMAs.
-__device__ __forceinline__ void fma_step(float (&acc)[2][4], const float* w4, float a, float b) {
-  const float4 wv = *reinterpret_cast<const float4*>(w4);
-  acc[0][0] = fmaf(a, wv.x, acc[0][0]);
-  acc[0][1] = fmaf(a, wv.y, acc[0][1]);
-  acc[0][2] = fmaf(a, wv.z, acc[0][2]);
-  acc[0][3] = fmaf(a, wv.w, acc[0][3]);
-  acc[1][0] = fmaf(b, wv.x, acc[1][0]);
-  acc[1][1] = fmaf(b, wv.y, acc[1][1]);
-  acc[1][2] = fmaf(b, wv.z, acc[1][2]);
-  acc[1][3] = fmaf(b, wv.w, acc[1][3]);
+// Elements of padding per staged pixel: keeps each pixel 16-byte aligned for
+// the copies and spreads neighbouring pixels over the banks.
+__host__ __device__ inline int pixel_stride(int c_in) { return c_in + 4; }
+
+// k-groups (4 trits, one packed byte) per mma step, and the padded count.
+template <typename TIn> struct Depth { static constexpr int kGroups = 8; };   // int8: k32
+template <> struct Depth<float> { static constexpr int kGroups = 4; };        // bf16: k16
+
+struct Layout {
+  int patch, weights, table, part, total;   // byte offsets and the size
+};
+
+__host__ __device__ inline Layout smem_layout(int kh, int kw, int th, int tw, int c_in,
+                                              int q_padded, int in_bytes) {
+  Layout l;
+  l.patch = 0;
+  l.weights = round16((th + kh - 1) * (tw + kw - 1) * pixel_stride(c_in) * in_bytes);
+  l.table = l.weights + round16(q_padded * kTileN);
+  l.part = l.table + round16(q_padded * 4);
+  l.total = l.part + kTilePix * kPartStride * 4;
+  return l;
 }
 
-// Floats of dynamic shared memory one block needs.
-__host__ __device__ inline size_t smem_floats(int kh, int kw, int th, int tw, bool pool) {
-  size_t w = static_cast<size_t>(kh) * kw * kChunkC * kTileN;
-  size_t x = static_cast<size_t>(th + kh - 1) * (tw + kw - 1) * kPatchStride;
-  size_t o = pool ? static_cast<size_t>(kTilePix) * kOutStride : 0;
-  return w + x + o;
+template <typename Acc>
+__device__ __forceinline__ float to_float(Acc v) { return static_cast<float>(v); }
+
+// int8 input: m16n8k32 s8 mmas, int32 accumulators.
+__device__ __forceinline__ void k_walk(int (&acc)[4][4], const int8_t* patch,
+                                       const uint8_t* ws, const int* tab, int base0,
+                                       int base1, int ks0, int ks_step, int n_ksteps,
+                                       int g, int t) {
+  for (int ks = ks0; ks < n_ksteps; ks += ks_step) {
+    // A: rows g, g+8 (pixels) x k = 4t..4t+3 (group q0) and 16+4t.. (group q0+4)
+    const int q0 = ks * 8 + t, q1 = q0 + 4;
+    const int o0 = tab[q0], o1 = tab[q1];
+    const uint32_t a[4] = {*reinterpret_cast<const uint32_t*>(patch + base0 + o0),
+                           *reinterpret_cast<const uint32_t*>(patch + base1 + o0),
+                           *reinterpret_cast<const uint32_t*>(patch + base0 + o1),
+                           *reinterpret_cast<const uint32_t*>(patch + base1 + o1)};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      // B: the bytes of groups q0 and q1 in column 8j + g
+      const uint32_t w0 = ws[q0 * kTileN + 8 * j + g];
+      const uint32_t w1 = ws[q1 * kTileN + 8 * j + g];
+#ifndef TCONV_ABLATE_DECODE
+      const uint32_t b0 = tmma::decode_s8x4(w0), b1 = tmma::decode_s8x4(w1);
+#else
+      const uint32_t b0 = w0 * 0x01010101u, b1 = w1 * 0x01010101u;
+#endif
+#ifndef TCONV_ABLATE_MMA
+      tmma::mma_s8(acc[j], a, b0, b1);
+#else
+      acc[j][0] += static_cast<int>((a[0] ^ a[1] ^ a[2] ^ a[3] ^ b0 ^ b1) & 1u);
+#endif
+    }
+  }
+}
+
+// float32 input: the exact three-way bf16 split, m16n8k16 mmas, float32
+// accumulators.  As in the matmul, each k-step's hi term and its lo and mid
+// terms land in fresh fragments that are added to `acc` on the CUDA cores, so
+// no tensor-core accumulation chain is longer than 2 mmas.
+__device__ __forceinline__ void k_walk(float (&acc)[4][4], const float* patch,
+                                       const uint8_t* ws, const int* tab, int base0,
+                                       int base1, int ks0, int ks_step, int n_ksteps,
+                                       int g, int t) {
+  const int ch = 2 * (t & 1);   // k = 2t, 2t+1: channels ch, ch+1 of group ks*4 + t/2
+  const int sh = 4 * (t & 1);   // ... the nibble of the packed byte that holds them
+  for (int ks = ks0; ks < n_ksteps; ks += ks_step) {
+    const int q0 = ks * 4 + (t >> 1), q1 = q0 + 2;
+    const int o0 = tab[q0] + ch, o1 = tab[q1] + ch;
+    const float2 v0 = *reinterpret_cast<const float2*>(patch + base0 + o0);
+    const float2 v1 = *reinterpret_cast<const float2*>(patch + base1 + o0);
+    const float2 v2 = *reinterpret_cast<const float2*>(patch + base0 + o1);
+    const float2 v3 = *reinterpret_cast<const float2*>(patch + base1 + o1);
+    const tmma::Bf16x3 s0 = tmma::split_bf16x3(v0.x, v0.y), s1 = tmma::split_bf16x3(v1.x, v1.y),
+                       s2 = tmma::split_bf16x3(v2.x, v2.y), s3 = tmma::split_bf16x3(v3.x, v3.y);
+    const uint32_t hi[4] = {s0.hi, s1.hi, s2.hi, s3.hi};
+    const uint32_t mid[4] = {s0.mid, s1.mid, s2.mid, s3.mid};
+    const uint32_t lo[4] = {s0.lo, s1.lo, s2.lo, s3.lo};
+    const bool rest = __any_sync(0xffffffffu, (mid[0] | mid[1] | mid[2] | mid[3] | lo[0] |
+                                               lo[1] | lo[2] | lo[3]) != 0u);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const uint32_t w0 = ws[q0 * kTileN + 8 * j + g];
+      const uint32_t w1 = ws[q1 * kTileN + 8 * j + g];
+#ifndef TCONV_ABLATE_DECODE
+      const uint32_t b0 = tmma::decode_bf16x2(w0 >> sh), b1 = tmma::decode_bf16x2(w1 >> sh);
+#else
+      const uint32_t b0 = w0 << sh, b1 = w1 << sh;
+#endif
+      float part[4] = {0.0f, 0.0f, 0.0f, 0.0f}, rest_part[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#ifndef TCONV_ABLATE_MMA
+      tmma::mma_bf16(part, hi, b0, b1);
+      if (rest) {
+        tmma::mma_bf16(rest_part, lo, b0, b1);
+        tmma::mma_bf16(rest_part, mid, b0, b1);
+      }
+#else
+      part[0] = __uint_as_float((hi[0] ^ mid[1] ^ lo[2] ^ b0 ^ b1) & 0x3F800000u);
+#endif
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[j][i] += part[i] + rest_part[i];
+    }
+  }
 }
 
 template <typename TIn, typename TOut, bool kTernarize, bool kPool>
@@ -90,170 +194,148 @@ tconv_kernel(const TIn* __restrict__ x, const uint8_t* __restrict__ wp,
              const float* __restrict__ scale, const float* __restrict__ thr,
              TOut* __restrict__ out, int H, int W, int C_in, int KH, int KW,
              int C_out, int th, int tw, int pool) {
-  extern __shared__ __align__(16) float smem[];
-  const int taps = KH * KW;
-  const int patch_h = th + KH - 1, patch_w = tw + KW - 1;
-  float* w_s = smem;                                  // [taps][kChunkC][kTileN]
-  float* x_s = w_s + taps * kChunkC * kTileN;         // [patch_h*patch_w][kPatchStride]
-  float* o_s = x_s + patch_h * patch_w * kPatchStride;  // [kTilePix][kOutStride], pooled variants
+  using Acc = typename std::conditional<std::is_same<TIn, float>::value, float, int>::type;
+  constexpr int kGroups = Depth<TIn>::kGroups;
+  extern __shared__ __align__(16) unsigned char smem[];
 
   const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int taps = KH * KW;
+  const int c4 = C_in >> 2;
+  const int q_real = taps * c4;                                // k-groups holding weights
+  const int n_ksteps = (q_real + kGroups - 1) / kGroups;
+  const int q_padded = n_ksteps * kGroups;
+  const int patch_w = tw + KW - 1, patch_h = th + KH - 1;
+  const int ps = pixel_stride(C_in);
+  const Layout lay = smem_layout(KH, KW, th, tw, C_in, q_padded, sizeof(TIn));
+  TIn* patch = reinterpret_cast<TIn*>(smem + lay.patch);
+  uint8_t* ws = smem + lay.weights;
+  int* tab = reinterpret_cast<int*>(smem + lay.table);
+  Acc* part = reinterpret_cast<Acc*>(smem + lay.part);
+
   const int tiles_x = (W + tw - 1) / tw;
   const int y0 = (blockIdx.x / tiles_x) * th;
   const int x0 = (blockIdx.x % tiles_x) * tw;
   const int n0 = blockIdx.y * kTileN;
   const int b = blockIdx.z;
-  const int pad_top = KH / 2, pad_left = KW / 2;
-  const int c4_total = C_in >> 2;
-
-  // thread -> 4 output channels x 2 pixels of the tile.  A warp shares its
-  // channel group, so the 16-byte weight load is one broadcast, and its lanes
-  // hold 32 different pixels, whose patch rows lie kPatchStride floats apart
-  const int cg = tid >> 5;
   const int n_pix = th * tw;
-  int pix[2], py[2], px[2];
-  bool live[2];
-#pragma unroll
-  for (int j = 0; j < 2; ++j) {
-    pix[j] = (tid & 31) + 32 * j;
-    live[j] = pix[j] < n_pix;
-    const int p = live[j] ? pix[j] : 0;   // dead lanes read pixel 0, write nothing
-    py[j] = p / tw;
-    px[j] = p % tw;
-  }
 
-  float acc[2][4];
-#pragma unroll
-  for (int j = 0; j < 2; ++j)
-#pragma unroll
-    for (int k = 0; k < 4; ++k) acc[j][k] = 0.0f;
-
-  for (int c0 = 0; c0 < C_in; c0 += kChunkC) {
-    const int ck = min(kChunkC, C_in - c0);   // multiple of 4
-    const int cq_n = ck >> 2;
-
-#ifndef TCONV_ABLATE_DECODE
-    // decode this block's packed weight bytes once: plus = b1, minus = NOR(b1, b0).
-    // A thread keeps its output channel and strides over (tap, byte) rows; the
-    // loop is unrolled so that several global loads are in flight at once.
-    {
-      const int n = tid & (kTileN - 1);
-      const int gn = n0 + n;
-#pragma unroll 4
-      for (int r = tid / kTileN; r < taps * cq_n; r += kThreads / kTileN) {
-        const int cq = r % cq_n;
-        const int tap = r / cq_n;
-        uint8_t byte = 0x55;   // four zero trits: channels past C_out contribute nothing
-        if (gn < C_out)
-          byte = wp[(static_cast<size_t>(tap) * c4_total + (c0 >> 2) + cq) * C_out + gn];
-#pragma unroll
-        for (int s = 0; s < 4; ++s) {
-          const int code = (byte >> (2 * s)) & 3;
-          const int plus = (code >> 1) & 1;
-          const int minus = ((code | (code >> 1)) & 1) ^ 1;
-          w_s[(tap * kChunkC + cq * 4 + s) * kTileN + n] = static_cast<float>(plus - minus);
-        }
-      }
-    }
-#endif
+  // ---- stage once: patch, weight slice, k-group table; one barrier --------
 #ifndef TCONV_ABLATE_STAGE
-    // stage the input patch with its zero border: a thread keeps its channel
-    // and strides over the patch's pixels (threads past the last whole pixel
-    // group idle), again unrolled for loads in flight
-    {
-      const int cc = tid % ck;
-      const int r_step = kThreads / ck;
-      const int r_first = tid / ck;
-      if (r_first < r_step) {
-#pragma unroll 4
-        for (int r = r_first; r < patch_h * patch_w; r += r_step) {
-          const int iy = y0 + r / patch_w - pad_top;
-          const int ix = x0 + r % patch_w - pad_left;
-          float v = 0.0f;
-          if (iy >= 0 && iy < H && ix >= 0 && ix < W)
-            v = to_f32(x[((static_cast<size_t>(b) * H + iy) * W + ix) * C_in + c0 + cc]);
-          x_s[r * kPatchStride + cc] = v;
-        }
-      }
-    }
-#endif
-    __syncthreads();
-
-#ifndef TCONV_ABLATE_FMA
-    for (int tap = 0; tap < taps; ++tap) {
-      const int dy = tap / KW, dx = tap % KW;
-      const float* xa = x_s + ((py[0] + dy) * patch_w + px[0] + dx) * kPatchStride;
-      const float* xb = x_s + ((py[1] + dy) * patch_w + px[1] + dx) * kPatchStride;
-      const float* wr = w_s + tap * kChunkC * kTileN + cg * 4;
-      if (ck == kChunkC) {
-        // full chunk: unrolled, so the shared-memory loads of later channels
-        // are in flight while the FMAs of earlier ones retire
-#pragma unroll
-        for (int cc = 0; cc < kChunkC; ++cc) fma_step(acc, wr + cc * kTileN, xa[cc], xb[cc]);
-      } else {
-        for (int cc = 0; cc < ck; ++cc) fma_step(acc, wr + cc * kTileN, xa[cc], xb[cc]);
-      }
-    }
-#endif
-    __syncthreads();
+  for (int i = tid; i < patch_h * patch_w * c4; i += kThreads) {
+    const int pix = i / c4, q = i % c4;
+    const int iy = y0 - KH / 2 + pix / patch_w;
+    const int ix = x0 - KW / 2 + pix % patch_w;
+    const bool ok = iy >= 0 && iy < H && ix >= 0 && ix < W;   // else: the SAME zero border
+    const TIn* src = ok ? x + ((static_cast<size_t>(b) * H + iy) * W + ix) * C_in + 4 * q : x;
+    tmma::cp_async<4 * sizeof(TIn)>(patch + pix * ps + 4 * q, src, ok);
   }
-
-  // epilogue: scale -> ThFU ternarize (strict >) -> [pool] -> cast
-#pragma unroll
-  for (int j = 0; j < 2; ++j) {
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const int n = n0 + cg * 4 + k;
-      float y = 0.0f;
-      if (n < C_out) {
-        y = acc[j][k] * scale[n];
-        if (kTernarize) {
-          const float t = thr[n];
-          y = fabsf(y) > t ? (y > 0.0f ? 1.0f : -1.0f) : 0.0f;
-        }
-      }
-      acc[j][k] = y;
-    }
-  }
-
-  if (!kPool) {
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int oy = y0 + py[j], ox = x0 + px[j];
-      if (!live[j] || oy >= H || ox >= W) continue;
-      TOut* o = out + ((static_cast<size_t>(b) * H + oy) * W + ox) * C_out;
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        const int n = n0 + cg * 4 + k;
-        if (n < C_out) o[n] = static_cast<TOut>(acc[j][k]);
-      }
+  if ((C_out & 3) == 0) {
+    for (int i = tid; i < q_padded * (kTileN / 4); i += kThreads) {
+      const int r = i / (kTileN / 4), q = i % (kTileN / 4);
+      const int gn = n0 + 4 * q;
+      uint8_t* dst = ws + r * kTileN + 4 * q;
+      if (r < q_real && gn < C_out)
+        tmma::cp_async<4>(dst, wp + static_cast<size_t>(r) * C_out + gn, true);
+      else
+        *reinterpret_cast<uint32_t*>(dst) = 0x55555555u;   // zero trits: padding, ragged C_out
     }
   } else {
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      if (!live[j]) continue;
-#pragma unroll
-      for (int k = 0; k < 4; ++k) o_s[pix[j] * kOutStride + cg * 4 + k] = acc[j][k];
+    for (int i = tid; i < q_padded * kTileN; i += kThreads) {
+      const int r = i / kTileN, n = i % kTileN;
+      const int gn = n0 + n;
+      ws[i] = (r < q_real && gn < C_out) ? wp[static_cast<size_t>(r) * C_out + gn] : 0x55;
     }
-    __syncthreads();
+  }
+  tmma::cp_async_commit();
+#endif
+  // k-group q -> offset of its (tap, channel quad) in the patch; the padding
+  // groups point at element 0 and meet zero trits
+  for (int q = tid; q < q_padded; q += kThreads) {
+    int off = 0;
+    if (q < q_real) {
+      const int tap = q / c4;
+      off = ((tap / KW) * patch_w + tap % KW) * ps + 4 * (q % c4);
+    }
+    tab[q] = off;
+  }
+  tmma::cp_async_wait<0>();
+  __syncthreads();
+
+  // ---- the mma walk: warp -> (pixel group mg, reduction share kg) ---------
+  const int groups_m = (n_pix + 15) / 16;          // 16-pixel mma row groups
+  const int groups_k = kWarps / groups_m;          // warps sharing one row group
+  const int mg = warp % groups_m, kg = warp / groups_m;
+  if (kg < groups_k) {
+    int base[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int p = mg * 16 + g + 8 * h;
+      base[h] = p < n_pix ? ((p / tw) * patch_w + p % tw) * ps : 0;   // dead rows read pixel 0
+    }
+    Acc acc[4][4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[j][i] = Acc(0);
+    k_walk(acc, patch, ws, tab, base[0], base[1], kg, groups_k, n_ksteps, g, t);
+    // partial tile of this warp: rows mg*16 + g (+8), columns 8j + 2t (+1)
+    Acc* pk = part + (kg * groups_m * 16 + mg * 16) * kPartStride;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int col = 8 * j + 2 * t;
+      pk[g * kPartStride + col] = acc[j][0];
+      pk[g * kPartStride + col + 1] = acc[j][1];
+      pk[(g + 8) * kPartStride + col] = acc[j][2];
+      pk[(g + 8) * kPartStride + col + 1] = acc[j][3];
+    }
+  }
+  __syncthreads();
+
+  // ---- epilogue: sum of the warps' partials (warp order) -> scale -> ThFU
+  //      ternarize (strict >) -> [pool] -> cast ----------------------------
+#ifndef TCONV_ABLATE_EPILOGUE
+  const int share = groups_m * 16 * kPartStride;   // words between two warps' partials
+  auto value = [&](int r, int n) -> float {
+    Acc s = part[r * kPartStride + n];
+    for (int k = 1; k < groups_k; ++k) s += part[k * share + r * kPartStride + n];
+    float y = to_float(s) * scale[n0 + n];
+    if (kTernarize) {
+      const float c = thr[n0 + n];
+      y = fabsf(y) > c ? (y > 0.0f ? 1.0f : -1.0f) : 0.0f;
+    }
+    return y;
+  };
+  if (!kPool) {
+    for (int e = tid; e < n_pix * kTileN; e += kThreads) {
+      const int r = e / kTileN, n = e % kTileN;
+      const int oy = y0 + r / tw, ox = x0 + r % tw;
+      if (oy >= H || ox >= W || n0 + n >= C_out) continue;
+      out[((static_cast<size_t>(b) * H + oy) * W + ox) * C_out + n0 + n] =
+          static_cast<TOut>(value(r, n));
+    }
+  } else {
     // H and W are multiples of pool and the tile origin is pool-aligned, so a
     // pooled pixel inside the output lies wholly inside the image and the tile
     const int OH = H / pool, OW = W / pool;
     const int oth = th / pool, otw = tw / pool;
-    for (int i = tid; i < oth * otw * kTileN; i += kThreads) {
-      const int n = i % kTileN;
-      const int r = i / kTileN;
-      const int qy = r / otw, qx = r % otw;
+    for (int e = tid; e < oth * otw * kTileN; e += kThreads) {
+      const int n = e % kTileN, rq = e / kTileN;
+      const int qy = rq / otw, qx = rq % otw;
       const int oy = y0 / pool + qy, ox = x0 / pool + qx;
       if (oy >= OH || ox >= OW || n0 + n >= C_out) continue;
       float m = -INFINITY;
       for (int a = 0; a < pool; ++a)
         for (int c = 0; c < pool; ++c)
-          m = fmaxf(m, o_s[((qy * pool + a) * tw + qx * pool + c) * kOutStride + n]);
+          m = fmaxf(m, value((qy * pool + a) * tw + qx * pool + c, n));
       out[((static_cast<size_t>(b) * OH + oy) * OW + ox) * C_out + n0 + n] =
           static_cast<TOut>(m);
     }
   }
+#else
+  if (tid == 0 && H < 0) out[0] = static_cast<TOut>(to_float(part[0]));
+#endif
 }
 
 template <typename TIn, typename TOut, bool kTernarize, bool kPool>
@@ -261,7 +343,9 @@ int launch(const void* x, const void* wp, const float* scale, const float* thr,
            void* out, int B, int H, int W, int C_in, int KH, int KW, int C_out,
            int th, int tw, int pool, cudaStream_t stream) {
   auto kern = tconv_kernel<TIn, TOut, kTernarize, kPool>;
-  const size_t smem = smem_floats(KH, KW, th, tw, kPool) * sizeof(float);
+  constexpr int kGroups = Depth<TIn>::kGroups;
+  const int q_padded = (KH * KW * (C_in / 4) + kGroups - 1) / kGroups * kGroups;
+  const size_t smem = smem_layout(KH, KW, th, tw, C_in, q_padded, sizeof(TIn)).total;
   if (smem > 48 * 1024) {
     // above the static limit a launch is refused unless the kernel opted in
     cudaError_t e = cudaFuncSetAttribute(
@@ -301,16 +385,28 @@ int dispatch(const void* x, const void* wp, const float* scale, const float* thr
 
 // Returns 0 when the kernel was launched, a cudaError_t when the launch was
 // refused, and a negative code for arguments the kernel does not take
-// (-1 geometry, -2 int8 output without fuse_ternary).
+// (-1 geometry or plan, -2 int8 output without fuse_ternary).  The plan
+// (tile_h, tile_w, k_padded, warps_per_rows, blocks) comes from `conv_plan`
+// in repro_torch/kernels/ternary_conv2d.py; the kernel refuses one that is
+// not its own arithmetic.
 extern "C" int ternary_conv2d_launch(
     const void* x, int x_is_int8, const void* w_packed, const void* scale,
     const void* threshold, void* out, int out_is_int8, int B, int H, int W,
-    int C_in, int KH, int KW, int C_out, int tile_h, int tile_w,
-    int fuse_ternary, int fuse_pool, void* stream) {
+    int C_in, int KH, int KW, int C_out, int tile_h, int tile_w, int k_padded,
+    int warps_per_rows, int blocks, int fuse_ternary, int fuse_pool, void* stream) {
   const int pool = fuse_pool > 1 ? fuse_pool : 1;
   if (B < 1 || H < 1 || W < 1 || C_in < 4 || (C_in & 3) || KH < 1 || KW < 1 ||
       C_out < 1 || tile_h < 1 || tile_w < 1 || tile_h * tile_w > kTilePix ||
       tile_h % pool || tile_w % pool || H % pool || W % pool || B > 65535)
+    return -1;
+  // the plan: the reduction padded to whole mma steps, the warps that share a
+  // 16-pixel row group, and the grid
+  const int groups = x_is_int8 ? Depth<int8_t>::kGroups : Depth<float>::kGroups;
+  const int q_padded = (KH * KW * (C_in / 4) + groups - 1) / groups * groups;
+  const int row_groups = (tile_h * tile_w + 15) / 16;
+  const long long grid = static_cast<long long>(B) * ((H + tile_h - 1) / tile_h) *
+                         ((W + tile_w - 1) / tile_w) * ((C_out + kTileN - 1) / kTileN);
+  if (k_padded != 4 * q_padded || warps_per_rows != kWarps / row_groups || blocks != grid)
     return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* sc = static_cast<const float*>(scale);

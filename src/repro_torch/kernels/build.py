@@ -3,8 +3,9 @@
 Each ``*.cu`` there has a plain ``extern "C"`` interface and is compiled by
 ``nvcc`` for ``sm_90a`` into a shared library, at first use, from the source
 in the package — never at import time, so hosts without a CUDA toolkit can
-import every module.  The library file is keyed by a hash of the source, so
-an edited source rebuilds and an unchanged one is reused.  A failed build
+import every module.  The library file is keyed by a hash of the source,
+of every shared header ``csrc/*.cuh`` and of the flags, so an edited source
+or header rebuilds and an unchanged one is reused.  A failed build
 raises; nothing falls back to another implementation.
 
 The build directory is ``build/`` at the root of a source checkout (listed
@@ -54,10 +55,13 @@ def find_nvcc() -> str:
 
 def library_path(source: str) -> Path:
     """Where the shared library of ``csrc/<source>`` lives, keyed by the
-    source's content hash (and the flags) so an edit rebuilds."""
-    text = (CSRC_DIR / source).read_bytes()
-    digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return build_dir() / f"{Path(source).stem}_{digest}.so"
+    content hash of the source, of every header ``csrc/*.cuh`` (any of them
+    may be included) and of the flags, so an edit to any of them rebuilds."""
+    h = hashlib.sha256((CSRC_DIR / source).read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return build_dir() / f"{Path(source).stem}_{h.hexdigest()[:16]}.so"
 
 
 def compile_command(source: str, out: Path, extra_flags=()) -> list:

@@ -27,7 +27,8 @@ implementations — and the reference's — agree bit for bit.
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+import math
+from typing import NamedTuple, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -37,8 +38,12 @@ from repro_torch.kernels.ref import exact_float32
 
 SOURCE = "ternary_conv2d.cu"
 _SHIFTS = (0, 2, 4, 6)
-_TILE_PIXELS = 64  # kTilePix of the kernel: output pixels per block
+_TILE_PIXELS = 64  # kTilePix of the kernel: output pixels per block at most
+_TILE_CHOICES = (64, 32, 16)  # pixel tiles of the plan, largest first
+_TILE_N = 32       # kTileN of the kernel: output channels per block
+_WARPS = 4         # warps per block
 _MAX_POOL = 8      # largest pool window a 64-pixel tile can hold square
+TARGET_BLOCKS = 132  # one block per SM of an H100
 
 
 def _select_w(wp: torch.Tensor, dtype) -> torch.Tensor:
@@ -125,32 +130,70 @@ def ternary_conv2d_native(
 # The Hopper kernel's wrapper
 # ---------------------------------------------------------------------------
 
-def tile_shape(h: int, w: int, fuse_pool: int) -> Tuple[int, int]:
+def tile_shape(h: int, w: int, fuse_pool: int, pixels: int = _TILE_PIXELS) -> Tuple[int, int]:
     """The (rows, cols) of output pixels one block of the kernel owns: at
-    most 64 pixels, both sides multiples of the pool window so a window
-    never straddles two blocks.  Narrow maps (the TCN-mapped 25x1, 13x2,
-    7x4) get tall tiles instead of mostly-empty square ones."""
+    most ``pixels`` (64, 32 or 16), both sides multiples of the pool window
+    so a window never straddles two blocks.  Narrow maps (the TCN-mapped
+    25x1, 13x2, 7x4) get tall tiles instead of mostly-empty square ones."""
     p = fuse_pool if fuse_pool > 1 else 1
     if p > _MAX_POOL:
         raise ValueError(
             f"fuse_pool={fuse_pool}: the CUDA kernel holds pool windows up to "
             f"{_MAX_POOL}x{_MAX_POOL} in one {_TILE_PIXELS}-pixel tile"
         )
+    if pixels not in _TILE_CHOICES or p * p > pixels:
+        raise ValueError(f"no {pixels}-pixel tile holds a {p}x{p} pool window")
     if p & (p - 1):  # not a power of two: the largest square of whole windows
-        side = (_MAX_POOL // p) * p
+        side = (math.isqrt(pixels) // p) * p
         return side, side
     tw = 1
     while tw < min(w, 8):
         tw *= 2
-    tw = max(tw, p)
-    return _TILE_PIXELS // tw, tw
+    tw = min(max(tw, p), pixels // p)
+    return pixels // tw, tw
+
+
+class ConvPlan(NamedTuple):
+    """What the wrapper passes to the kernel, which checks every field."""
+    tile_h: int        # output pixels per block: rows ...
+    tile_w: int        # ... and columns, multiples of the pool window
+    k_padded: int      # KH*KW*C_in padded with zero trits to whole mmas (32 int8, 16 bf16 deep)
+    warps_per_rows: int  # warps that share one 16-pixel row group (split the reduction)
+    blocks: int        # grid size
+
+
+def conv_plan(b: int, h: int, w: int, c_in: int, c_out: int, kh: int, kw: int,
+              fuse_pool: int, x_dtype=torch.int8) -> ConvPlan:
+    """The kernel's tiling of one launch as an implicit GEMM: M = output
+    pixels in tiles of 64, 32 or 16 (the largest that still gives
+    ``TARGET_BLOCKS`` blocks, else the smallest that holds a pool window),
+    N = 32-channel tiles, and the reduction (tap, channel) flattened with
+    the channel fastest and padded once to the mma depth.  Four warps per
+    block; a tile of fewer than 64 pixels splits its reduction across the
+    warps that share a 16-pixel row group."""
+    if x_dtype not in (torch.float32, torch.int8):
+        raise ValueError(f"x dtype {x_dtype} not in (float32, int8)")
+    p = fuse_pool if fuse_pool > 1 else 1
+    n_tiles = -(-c_out // _TILE_N)
+    choices = [px for px in _TILE_CHOICES if px >= p * p]
+    if not choices:
+        tile_shape(h, w, fuse_pool)  # raises with the reason
+    for pixels in choices:
+        th, tw = tile_shape(h, w, fuse_pool, pixels)
+        blocks = b * -(-h // th) * -(-w // tw) * n_tiles
+        if blocks >= TARGET_BLOCKS:
+            break
+    mma_k = 32 if x_dtype == torch.int8 else 16
+    k_padded = -(-kh * kw * c_in // mma_k) * mma_k
+    row_groups = -(-th * tw // 16)
+    return ConvPlan(th, tw, k_padded, _WARPS // row_groups, blocks)
 
 
 def _bind(lib: ctypes.CDLL):
     fn = lib.ternary_conv2d_launch
     if not fn.argtypes:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, i, p, p, p, p, i, i, i, i, i, i, i, i, i, i, i, i, p]
+        fn.argtypes = [p, i, p, p, p, p, i, i, i, i, i, i, i, i, i, i, i, i, i, i, i, p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -206,7 +249,13 @@ def ternary_conv2d_cuda(
         raise ValueError("int8 output carries trits only: it needs fuse_ternary=True")
     if min(b, h, w, c_out) < 1 or b > 65535:
         raise ValueError(f"empty or oversized launch: B={b} H={h} W={w} C_out={c_out}")
-    th, tw = tile_shape(h, w, fuse_pool)
+    plan = conv_plan(b, h, w, c_in, c_out, kh, kw, fuse_pool, x.dtype)
+    # cp.async copies 4 B of int8 x (16 B of float32 x) and 4 B of packed
+    # bytes: a view that starts off that alignment is copied first
+    if x.data_ptr() % 16:
+        x = x.clone()
+    if w_packed.data_ptr() % 4:
+        w_packed = w_packed.clone()
     oh, ow = (h // fuse_pool, w // fuse_pool) if fuse_pool > 1 else (h, w)
     out = torch.empty((b, oh, ow, c_out), dtype=out_dtype, device=x.device)
 
@@ -216,14 +265,13 @@ def ternary_conv2d_cuda(
         rc = fn(
             x.data_ptr(), int(x.dtype == torch.int8), w_packed.data_ptr(),
             scale.data_ptr(), threshold.data_ptr(), out.data_ptr(),
-            int(out_dtype == torch.int8), b, h, w, c_in, kh, kw, c_out, th, tw,
+            int(out_dtype == torch.int8), b, h, w, c_in, kh, kw, c_out, *plan,
             int(bool(fuse_ternary)), int(fuse_pool), stream,
         )
     if rc != 0:
         raise RuntimeError(
             f"ternary_conv2d kernel launch refused (code {rc}) for x"
-            f"{tuple(x.shape)} w{tuple(w_packed.shape)} pool={fuse_pool} "
-            f"tile={th}x{tw}"
+            f"{tuple(x.shape)} w{tuple(w_packed.shape)} pool={fuse_pool} {plan}"
         )
     ternary_conv2d_cuda.launches += 1
     return out

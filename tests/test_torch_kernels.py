@@ -250,6 +250,54 @@ def test_cuda_kernel_equals_plain_version_on_the_card(shape):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("x_dtype", ["float32", "int8"])
+@pytest.mark.parametrize("shape", [SHAPES[1], SHAPES[7], SHAPES[10]],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_cuda_kernel_is_deterministic_on_gaussian_data(shape, x_dtype):
+    """Eight launches on the same non-ternary input give the same bits: the
+    warps' partial tiles are summed in warp order, no atomics.  Needs a
+    CUDA device."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no host or interpret mode")
+    b, h, w, c_in, c_out, k, pool = shape
+    _, wp, scale, thr = _case(b, h, w, c_in, c_out, k, seed=3 + sum(shape))
+    rng = np.random.RandomState(sum(shape))
+    x = rng.randn(b, h, w, c_in) if x_dtype == "float32" else rng.randint(-100, 101, (b, h, w, c_in))
+    (xt, wt, st), tt = _torch_args(x.astype(np.float32), wp, scale, thr, x_dtype)
+    xt, wt, st, tt = (a.cuda() for a in (xt, wt, st, tt))
+    # the unternarized accumulator; int8 x needs float32 out named, or the
+    # wrapper refuses int8 out without fuse_ternary
+    kw = dict(fuse_pool=pool, out_dtype=torch.float32)
+    outs = [ternary_conv2d_cuda(xt, wt, st, tt, **kw) for _ in range(8)]
+    assert all(torch.equal(outs[0], o) for o in outs[1:])
+    if x_dtype == "int8":  # integer sums: exact on the tensor cores
+        assert torch.equal(outs[0], ternary_conv2d_native(xt, wt, st, tt, **kw))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [
+    (8, 64, 64, 4, 64, 3, 2),      # conv0 of dvs_cnn_tcn at pool 8
+    (8, 25, 1, 96, 96, 3, 0),      # its first TCN layer
+    (2, 32, 32, 4, 192, 5, 2),     # the 5x5 stem of cifar10_tnn_wide
+], ids=lambda s: "x".join(map(str, s)))
+def test_cuda_kernel_float32_route_close_on_gaussian_data(shape):
+    """Gaussian float32 x needs all three bf16 terms (hi, mid, lo) of the
+    kernel's float32 route: within the reference's Gaussian tolerance of the
+    plain version, pooled and not.  Needs a CUDA device."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no host or interpret mode")
+    b, h, w, c_in, c_out, k, pool = shape
+    _, wp, scale, thr = _case(b, h, w, c_in, c_out, k, seed=5 + sum(shape))
+    x = np.random.RandomState(sum(shape)).randn(b, h, w, c_in).astype(np.float32)
+    (xt, wt, st), tt = _torch_args(x, wp, scale, thr)
+    xt, wt, st, tt = (a.cuda() for a in (xt, wt, st, tt))
+    for fuse_pool in sorted({0, pool}):
+        got = ternary_conv2d_cuda(xt, wt, st, tt, fuse_pool=fuse_pool)
+        want = ternary_conv2d_native(xt, wt, st, tt, fuse_pool=fuse_pool)
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("name", ["cifar10_tnn", "cifar10_tnn_wide", "kws_tcn", "dvs_cnn_tcn"])
 def test_full_width_registry_nets_fused_equals_ref_on_the_card(name):
     """Every full-width registry net through the kernel (3x3, the 5x5 stem

@@ -200,10 +200,14 @@ def test_kernel_source_is_cuda_cpp_with_a_plain_c_interface():
         assert banned not in src
 
 
+# the quickstart and the kernel bench, and K-splits whose boundary falls
+# inside a chunk with a ragged last split
+CARD_SHAPES = SHAPES + [(64, 2048, 512), (512, 2048, 512), (64, 2052, 512), (3, 260, 40)]
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("shape", SHAPES + [(64, 2048, 512), (512, 2048, 512)],
-                         ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("shape", CARD_SHAPES, ids=lambda s: "x".join(map(str, s)))
 def test_cuda_kernel_equals_plain_version_on_the_card(shape, dtype):
     """The hand-written kernel against its plain version on the card
     (tolerance 0 on dyadic x).  Needs a CUDA device and nvcc."""
@@ -219,3 +223,23 @@ def test_cuda_kernel_equals_plain_version_on_the_card(shape, dtype):
     xp = torch.nn.functional.pad(xt, (0, 4 * wp.shape[0] - k))
     assert torch.equal(got, ternary_matmul_native(xp, wt, st))
     assert torch.equal(got, ref_t(xp, wt, st))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(64, 2048, 512), (512, 2048, 512), (3, 260, 40)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_cuda_kernel_is_deterministic_and_close_on_gaussian_data(shape, dtype):
+    """Two launches on the same Gaussian x give the same bits (the K-split
+    partials are summed in cluster-rank order, no atomics), within the
+    reference's tolerance of the plain version.  Needs a CUDA device."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no host or interpret mode")
+    m, k, n = shape
+    x, wp, scale = _case(m, k, n, seed=7 + sum(shape), gaussian=True)
+    (xt, wt, st), _ = _both(x, wp, scale, dtype)
+    xt, wt, st = xt.cuda(), wt.cuda(), st.cuda()
+    first = ternary_matmul_cuda(xt, wt, st)
+    assert torch.equal(first, ternary_matmul_cuda(xt, wt, st))
+    want = ternary_matmul_native(xt, wt, st)
+    np.testing.assert_allclose(_np(first.cpu()), _np(want.cpu()), **TOL[dtype])
