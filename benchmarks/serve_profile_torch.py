@@ -2,6 +2,7 @@
 """Where a pool tick of the PyTorch/CUDA port spends its time, on one GPU.
 
     python3 benchmarks/serve_profile_torch.py [--net dvs_cnn_tcn] [--pool 8] [--ticks 40]
+        [--source deployed|loaded]
 
 Serves a full `SessionPool` (every slot busy, so each tick is the same
 fixed-shape step) on the ``fused`` backend and reports, for a steady window
@@ -14,6 +15,12 @@ of ticks after a warm-up:
     time the script says so and falls back to CUDA events around the
     window's launches, which gives the busy share only;
   * the number of device kernels per tick.
+
+``--source loaded`` serves the same program after a round trip through
+``.cutie`` bytes (`repro_torch.artifact.loads` on the card): the pool then
+steps a `LoadedProgram`, whose layers run through the plan executor.  Nets
+with one input channel (``kws_tcn``) get KWS spectrogram frames, the others
+DVS event frames.
 
 It prints the card's name and power limit first and one JSON object last.
 A CUDA device is required.
@@ -38,13 +45,17 @@ def main(argv=None) -> int:
     ap.add_argument("--pool", type=int, default=8)
     ap.add_argument("--ticks", type=int, default=40)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--source", default="deployed", choices=["deployed", "loaded"],
+                    help="serve the quantized DeployedProgram, or the LoadedProgram "
+                         "of its .cutie bytes")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("serve_profile_torch: needs a CUDA device", file=sys.stderr)
         return 1
 
+    from repro_torch import artifact
     from repro_torch.api import get_net
-    from repro_torch.data.pipeline import DVSEventPipeline
+    from repro_torch.data.pipeline import DVSEventPipeline, KWSSpectrogramPipeline
     from repro_torch.kernels.ternary_conv2d import ternary_conv2d_cuda
 
     card = subprocess.run(
@@ -57,11 +68,12 @@ def main(argv=None) -> int:
     prog = get_net(args.net)
     g = prog.graph
     n_frames = args.ticks + 10
-    frames, _ = DVSEventPipeline(
-        args.pool, steps=n_frames, hw=g.input_hw[0], seed=args.seed
-    ).next_batch()
+    pipe = DVSEventPipeline if g.input_ch == 2 else KWSSpectrogramPipeline
+    frames, _ = pipe(args.pool, steps=n_frames, hw=g.input_hw[0], seed=args.seed).next_batch()
     params = prog.init(torch.Generator().manual_seed(args.seed), device=dev)
     deployed = prog.quantize(params, calib=torch.from_numpy(frames[:, :8]).to(dev))
+    if args.source == "loaded":
+        deployed = artifact.loads(deployed.to_artifact_bytes(), device=dev)
     pool = deployed.serve(args.pool, backend="fused")
     ids = [f"s{i}" for i in range(args.pool)]
     for sid in ids:
@@ -110,7 +122,8 @@ def main(argv=None) -> int:
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:12]
 
     out = {
-        "card": card, "net": g.name, "pool": args.pool, "ticks": args.ticks,
+        "card": card, "net": g.name, "source": args.source, "pool": args.pool,
+        "ticks": args.ticks,
         "host_ms_per_tick_sync_each": sync_ms,
         "host_ms_per_tick_sync_once": free_ms,
         "frames_per_s_full_pool": args.pool / (free_ms / 1e3),
@@ -126,7 +139,7 @@ def main(argv=None) -> int:
     if not n_kernels:
         print("torch.profiler reported no device events; busy share not measured",
               flush=True)
-    print(f"{g.name} pool {args.pool}: {free_ms:.3f} ms/tick host (sync once), "
+    print(f"{g.name} ({args.source}) pool {args.pool}: {free_ms:.3f} ms/tick host (sync once), "
           f"{sync_ms:.3f} ms/tick (sync each), device {device_ms:.3f} ms/tick over "
           f"{out['device_kernels_per_tick']} kernels", flush=True)
     for row in out["top_kernels_ms_per_tick"]:

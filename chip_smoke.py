@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU: `python3 chip_smoke.py`.
 
-Drives the port's two paths on the card, each through the entry points a
+Drives the port's three paths on the card, each through the entry points a
 user calls, and holds every hand-written kernel against its plain PyTorch
 version.  It imports `repro_torch` only.
 
@@ -10,7 +10,12 @@ version.  It imports `repro_torch` only.
     under a `ContinuousBatcher` on the ``fused`` backend (kernel K1);
   * the quickstart path — `python -m repro_torch.quickstart`: the
     full-width ``cifar10_tnn`` on every deploy backend, the packed-ternary
-    matmul (kernel K2) and the silicon model.
+    matmul (kernel K2) and the silicon model;
+  * the deployment path — two full-width programs (``dvs_cnn_tcn`` and
+    ``kws_tcn``) shipped as ``.cutie`` bytes, loaded on the card with no
+    graph, and served together through one `FleetRouter` on ``fused``
+    (kernel K1 through the plan executor), ungated and activity-gated,
+    then through the launcher's ``--dvs --program`` and ``--fleet --gate``.
 
 Phases (any failure ends the run with a non-zero exit code and no result
 line):
@@ -44,7 +49,24 @@ line):
                 ``dvs_cnn_tcn`` clips and a bitsim stream == its batch
                 forward; every ``BENCH_silicon.json`` row (the reference's
                 silicon model output) reproduced exactly by the port
-  6. result     the ``kernels`` JSON line (each kernel's time beside its
+  6. fleet      build + quantize ``dvs_cnn_tcn`` and ``kws_tcn`` (seed 0,
+                calibrated on their own frames), assemble each to ``.cutie``
+                bytes and ``loads`` them on the card; gates: ``to_bytes()``
+                and dis -> asm give the same bytes, fused == ref == bitsim on
+                the loaded program == the `DeployedProgram` on an 8-frame
+                clip.  Ungated fleet (ladder cap 8, feeder thread; 16 sensors
+                per net in two waves): every stream completes, logits finite
+                and == a lone `StreamSession` on the loaded program, a grow
+                and a shrink in each bucket, each rung's pool constructed
+                once (count and object identity), 9 / 7 K1 launches per
+                bucket tick, the same run with ``ingest="sync"`` bit-identical.
+                Gated fleet (``ActivityGate(16, 4, 2)``, 8 sensors per net at
+                duty 0.4): processed frames == ``ActivityGate.plan``, each
+                stream == a lone session fed exactly those frames, a positive
+                silicon-model energy saving.  Then `repro_torch.launch.serve`
+                ``--dvs --program`` and ``--fleet --gate`` exit 0.  Prints
+                the ``fleet`` JSON line
+  7. result     the ``kernels`` JSON line (each kernel's time beside its
                 bound, plain version and library yardstick, all from this
                 run), the card line, and the last line
                 ``{"ok": true, "device": {...}}``
@@ -55,8 +77,8 @@ x, bf16 mmas otherwise, three per product for float32 x (hi + mid + lo)
 unless every value of x is bf16-exact, where one does.
 
 Each path is driven with the launch counts set to 0 just before it and read
-just after; launches made to compare a kernel with its plain version fall
-outside those windows.
+just after (the fleet per bucket tick); launches made to compare a kernel
+with its plain version fall outside those windows.
 
 Timing: CUDA events around a run of launches that were enqueued behind a
 spin kernel, after a warm-up, so the figures are device time and not the
@@ -95,6 +117,15 @@ K1_SOURCE = "src/repro_torch/csrc/ternary_conv2d.cu"
 K2_REPLACES = "src/repro/kernels/ternary_matmul.py:62"
 K2_SOURCE = "src/repro_torch/csrc/ternary_matmul.cu"
 REPO = Path(__file__).resolve().parent
+
+# the deployment path: (net, K1 launches per tick, channels, input, ring)
+FLEET_NETS = (("dvs_cnn_tcn", 9, 96, (64, 64), 2, 24),
+              ("kws_tcn", 7, 96, (32, 32), 1, 16))
+FLEET_CAP = 8
+FLEET_SENSORS = 16       # per net: sensors 0-11 in the first wave, 12-15 later
+FLEET_WAVE2_TICK = 30    # after the first wave has drained (about tick 20)
+GATED_SENSORS = 8        # per net
+GATED_DUTY = 0.4
 
 # (name, H, W, C_in, C_out, K, pool, input dtype) — the nine launches of one
 # pool tick of dvs_cnn_tcn (5 conv + 4 TCN layers; TCN maps carry the extra
@@ -603,6 +634,252 @@ def quickstart_path(dev):
     return launches
 
 
+def _fleet_clips(g, n, duty, seed):
+    """Seeded clips of ``n`` sensors x N_FRAMES frames from the net's own
+    pipeline (DVS events for 2 channels, KWS spectrograms for 1)."""
+    from repro_torch.data.pipeline import DVSEventPipeline, KWSSpectrogramPipeline
+
+    cls = DVSEventPipeline if g.input_ch == 2 else KWSSpectrogramPipeline
+    return cls(n, steps=N_FRAMES, hw=g.input_hw[0], n_classes=g.n_classes,
+               seed=seed, duty_cycle=duty).next_batch()
+
+
+def _lone_logits(program, clip, frame_idx, dev):
+    """Final logits of a lone batch-1 `StreamSession` on ``program`` fed
+    exactly ``frame_idx``'s frames (None when that is no frame)."""
+    session = program.stream(batch=1, backend="fused")
+    out = None
+    for t in frame_idx:
+        out = session.step(torch.from_numpy(clip[t][None]).to(dev))
+    return None if out is None else out.cpu().numpy()[0]
+
+
+def _run_fleet(programs, requests, ingest, gate=None):
+    """One `FleetRouter` run on ``fused`` with ``programs`` registered.
+    Counts K1 launches per bucket tick and the pool objects each rung
+    shows.  Returns (router, results, wall seconds, per-bucket launches,
+    per-bucket {rung: set of pool ids})."""
+    from repro_torch.kernels.ternary_conv2d import ternary_conv2d_cuda
+    from repro_torch.serving import FleetRouter
+
+    router = FleetRouter(backend="fused", max_pool_size=FLEET_CAP, ingest=ingest,
+                         gate=gate)
+    for name, program in programs.items():
+        router.register(name, program)
+    launches = {name: 0 for name in programs}
+    pools_seen = {name: {} for name in programs}
+    for name, bucket in router.buckets.items():
+        def counted(tick=bucket.tick, name=name, bucket=bucket):
+            before = ternary_conv2d_cuda.launches
+            out = tick()
+            launches[name] += ternary_conv2d_cuda.launches - before
+            pools_seen[name].setdefault(bucket.size, set()).add(id(bucket.batcher.pool))
+            return out
+        bucket.tick = counted
+    router.submit_many(requests)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    results = router.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    router.close()
+    return router, results, wall, launches, pools_seen
+
+
+def fleet_path(dev):
+    """Phase 6: the deployment path at full width — ship two ``.cutie``
+    programs, load them on the card, serve them through one gated and one
+    ungated `FleetRouter`, then through the launcher.  Returns the ``fleet``
+    report."""
+    from repro_torch import artifact
+    from repro_torch.api import get_net
+    from repro_torch.kernels.ternary_conv2d import ternary_conv2d_cuda
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.serving import ActivityGate, StreamRequest, energy_summary
+
+    t_phase = time.perf_counter()
+    loaded, clips, labels = {}, {}, {}
+    build_dir = REPO / "build"
+    build_dir.mkdir(exist_ok=True)
+    for idx, (name, per_tick, ch, hw, in_ch, steps) in enumerate(FLEET_NETS):
+        prog = get_net(name)
+        g = prog.graph
+        if (g.feature_channels, tuple(g.input_hw), g.input_ch, g.tcn_steps) != (ch, hw, in_ch, steps):
+            fail(f"{name} is not at full width: {g}")
+        clips[name], labels[name] = _fleet_clips(g, FLEET_SENSORS, 1.0, SEED + idx)
+        deployed = prog.quantize(
+            prog.init(torch.Generator().manual_seed(SEED), device=dev),
+            calib=torch.from_numpy(clips[name]).to(dev))
+        data = artifact.assemble(deployed)
+        program = loaded[name] = artifact.loads(data, device=dev)
+        if program.to_bytes() != data:
+            fail(f"{name}: LoadedProgram.to_bytes() != the assembled bytes")
+        if artifact.reassemble(artifact.disassemble(data)) != data:
+            fail(f"{name}: disassemble -> reassemble is not byte-identical")
+        (build_dir / f"chip_smoke_{name}.cutie").write_bytes(data)
+        clip = torch.from_numpy(clips[name][:1]).to(dev)
+        got = {b: program.forward(clip, backend=b) for b in ("fused", "ref", "bitsim")}
+        want = deployed.forward(clip, backend="fused")
+        for b, y in got.items():
+            if not torch.equal(y, want):
+                fail(f"{name}: loaded {b} != DeployedProgram fused on an {N_FRAMES}-frame "
+                     f"clip: max|diff|={(y - want).abs().max().item()}")
+        print(f"[chip_smoke] fleet: {name} -> {len(data)} .cutie bytes, loaded on the "
+              f"card; to_bytes and dis/asm identical; fused == ref == bitsim == "
+              f"deployed", flush=True)
+
+    # the ungated fleet: two waves per net, the first overshooting the cap
+    requests = []
+    for idx, (name, *_rest) in enumerate(FLEET_NETS):
+        for s in range(FLEET_SENSORS):
+            arrival = idx + s // 4 if s < 12 else FLEET_WAVE2_TICK
+            requests.append(StreamRequest(
+                stream_id=f"{name}/sensor-{s}", frames=clips[name][s],
+                label=int(labels[name][s]), arrival=arrival, net=name))
+    ternary_conv2d_cuda.launches = 0
+    router, results, wall, launches, pools_seen = _run_fleet(loaded, requests, "thread")
+    total_launches = ternary_conv2d_cuda.launches
+    stats = router.stats()
+    n_streams = FLEET_SENSORS * len(FLEET_NETS)
+    if len(results) != n_streams:
+        fail(f"fleet: {len(results)}/{n_streams} streams completed")
+    by_id = {r.stream_id: r for r in results}
+    for r in results:
+        if r.logits is None or not np.isfinite(r.logits).all():
+            fail(f"fleet: {r.stream_id} logits missing or not finite")
+        name, s = r.net, int(r.stream_id.rsplit("-", 1)[1])
+        lone = _lone_logits(loaded[name], clips[name][s], range(N_FRAMES), dev)
+        if not np.array_equal(r.logits, lone):
+            fail(f"fleet: {r.stream_id} pooled logits != lone StreamSession")
+    per_bucket = {}
+    for name, per_tick, *_rest in FLEET_NETS:
+        s = stats["nets"][name]
+        reasons = [e["reason"] for e in s["scale_events"]]
+        busy = len(router.buckets[name].batcher.latency_trace)
+        if "grow" not in reasons or "shrink" not in reasons:
+            fail(f"fleet: {name} scale events {reasons} lack a grow and a shrink")
+        if any(n != 1 for n in s["pools_built"].values()):
+            fail(f"fleet: {name} pools built {s['pools_built']} (1 per rung)")
+        if any(len(ids) != 1 for ids in pools_seen[name].values()):
+            fail(f"fleet: {name} ran more than one pool object on a rung")
+        if set(pools_seen[name]) != set(s["pools_built"]):
+            fail(f"fleet: {name} rungs seen {sorted(pools_seen[name])} != built")
+        if any(tc > 1 for tc in s["pools_traced"].values()):
+            fail(f"fleet: {name} step programs {s['pools_traced']} (<= 1 per pool)")
+        if not s["ingest_threaded"]:
+            fail(f"fleet: {name} feeder did not run on its thread")
+        if launches[name] != per_tick * busy:
+            fail(f"fleet: {name} made {launches[name]} K1 launches over {busy} "
+                 f"busy ticks; expected {per_tick} per tick")
+        per_bucket[name] = {
+            "busy_ticks": busy, "k1_launches": launches[name],
+            "k1_launches_per_tick": launches[name] / busy,
+            "scale_events": [f"{e['from_size']}->{e['to_size']}@{e['tick']}"
+                             for e in s["scale_events"]],
+            "pools_built": s["pools_built"], "pools_traced": s["pools_traced"],
+            "ms_per_tick_by_rung": {
+                str(size): {"ticks": v["ticks"], "p50": v["p50_ms"], "p99": v["p99_ms"]}
+                for size, v in s["latency_by_pool_size"].items()},
+        }
+    if total_launches != sum(launches.values()):
+        fail(f"fleet: {total_launches} K1 launches in the run, "
+             f"{sum(launches.values())} inside bucket ticks")
+    frames = stats["aggregate"]["frames_processed"]
+    _, sync_results, sync_wall, _, _ = _run_fleet(loaded, requests, "sync")
+    for r in sync_results:
+        if not np.array_equal(r.logits, by_id[r.stream_id].logits):
+            fail(f"fleet: {r.stream_id} ingest=sync != ingest=thread")
+    print(f"[chip_smoke] fleet: {n_streams} streams x {N_FRAMES} frames over "
+          f"{stats['aggregate']['ticks']} ticks, {wall:.3f} s -> {frames / wall:.1f} "
+          f"frames/s (ingest=sync: {frames / sync_wall:.1f}); == lone sessions; sync == thread; "
+          + "; ".join(f"{n}: {b['scale_events']}, K1 {b['k1_launches_per_tick']:.0f}/tick"
+                      for n, b in per_bucket.items()), flush=True)
+
+    # the gated fleet: bursty traces, ActivityGate(16, 4, 2)
+    gate = ActivityGate(16, 4, 2)
+    g_clips, g_requests = {}, []
+    for idx, (name, *_rest) in enumerate(FLEET_NETS):
+        g_clips[name], g_labels = _fleet_clips(loaded[name].graph, GATED_SENSORS,
+                                               GATED_DUTY, SEED + 10 + idx)
+        for s in range(GATED_SENSORS):
+            g_requests.append(StreamRequest(
+                stream_id=f"{name}/gated-{s}", frames=g_clips[name][s],
+                label=int(g_labels[s]), arrival=idx + s * len(FLEET_NETS), net=name))
+    ternary_conv2d_cuda.launches = 0
+    g_router, g_results, g_wall, g_launches, _ = _run_fleet(loaded, g_requests, "thread", gate)
+    g_stats = g_router.stats()
+    if len(g_results) != GATED_SENSORS * len(FLEET_NETS):
+        fail(f"gated fleet: {len(g_results)} streams completed")
+    for r in g_results:
+        name, s = r.net, int(r.stream_id.rsplit("-", 1)[1])
+        clip = g_clips[name][s]
+        plan = gate.plan([ActivityGate.activity(f) for f in clip])
+        processed = [t for t, p in enumerate(plan) if p]
+        if r.frames_processed != len(processed):
+            fail(f"gated fleet: {r.stream_id} processed {r.frames_processed} frames, "
+                 f"plan says {len(processed)}")
+        lone = _lone_logits(loaded[name], clip, processed, dev)
+        if (lone is None) != (r.logits is None) or (
+                lone is not None and not np.array_equal(r.logits, lone)):
+            fail(f"gated fleet: {r.stream_id} != a lone session fed the plan's frames")
+    energy = {}
+    for name, per_tick, *_rest in FLEET_NETS:
+        sg = g_stats["nets"][name]["gating"]
+        busy = len(g_router.buckets[name].batcher.latency_trace)
+        if g_launches[name] != per_tick * busy:
+            fail(f"gated fleet: {name} made {g_launches[name]} K1 launches over "
+                 f"{busy} busy ticks")
+        e = energy_summary(
+            loaded[name], frames_processed=sg["frames_processed"],
+            frames_total=sg["frames_processed"] + sg["frames_skipped"],
+            completed=sum(1 for r in g_results if r.net == name and r.logits is not None))
+        if not e["energy_uj_saved"] > 0.0:
+            fail(f"gated fleet: {name} saves no energy ({e['energy_uj_saved']} uJ)")
+        energy[name] = {
+            "frames_processed": sg["frames_processed"],
+            "frames_skipped": sg["frames_skipped"], "parks": sg["parks"],
+            "wakes": sg["wakes"], "busy_ticks": busy,
+            "k1_launches_per_tick": g_launches[name] / busy,
+            "silicon_model_uj_saved": e["energy_uj_saved"],
+            "silicon_model_uj_per_classification": e["energy_uj_per_classification"],
+            "silicon_model_uj_per_classification_ungated":
+                e["energy_uj_per_classification_ungated"],
+        }
+    g_frames = g_stats["aggregate"]["frames_processed"]
+    print(f"[chip_smoke] gated fleet: {g_frames} frames processed, "
+          f"{g_stats['gating']['frames_skipped']} skipped, {g_wall:.3f} s; processed == "
+          f"plan, == lone sessions; silicon-model uJ saved "
+          + ", ".join(f"{n} {e['silicon_model_uj_saved']:.3f}" for n, e in energy.items()),
+          flush=True)
+
+    # the launcher, as a user runs it
+    dvs_file = build_dir / f"chip_smoke_{FLEET_NETS[0][0]}.cutie"
+    for argv in (["--dvs", "--program", str(dvs_file), "--pool", str(FLEET_CAP)],
+                 ["--fleet", "--fleet-nets", ",".join(n for n, *_ in FLEET_NETS),
+                  "--pool", str(FLEET_CAP), "--gate"]):
+        rc = launch_serve.main(argv + ["--device", "cuda", "--seed", str(SEED)])
+        if rc != 0:
+            fail(f"repro_torch.launch.serve {' '.join(argv)} exited {rc}")
+    print("[chip_smoke] fleet: launcher --dvs --program and --fleet --gate exit 0",
+          flush=True)
+    return {
+        "nets": [n for n, *_ in FLEET_NETS], "ladder_cap": FLEET_CAP,
+        "ungated": {
+            "streams": n_streams, "frames": frames, "ticks": stats["aggregate"]["ticks"],
+            "wall_s": wall, "frames_per_s": frames / wall,
+            "sync_ingest_wall_s": sync_wall, "sync_ingest_frames_per_s": frames / sync_wall,
+            "k1_launches": total_launches, "buckets": per_bucket,
+        },
+        "gated": {
+            "streams": len(g_results), "frames_processed": g_frames,
+            "frames_skipped": g_stats["gating"]["frames_skipped"],
+            "ticks": g_stats["aggregate"]["ticks"], "wall_s": g_wall,
+            "frames_per_s": g_frames / g_wall, "buckets": energy,
+        },
+        "phase_s": time.perf_counter() - t_phase,
+    }
+
+
 def main() -> int:
     # phase 1: device
     if not torch.cuda.is_available():
@@ -638,7 +915,10 @@ def main() -> int:
     # phase 5: the quickstart path
     qs_launches = quickstart_path(dev)
 
-    # phase 6: results
+    # phase 6: the deployment path
+    fleet = fleet_path(dev)
+
+    # phase 7: results
     mm = mm_rows[0]  # the quickstart's launch: 64x2048x512 float32
     kernels = {"kernels": [{
         "name": "ternary_conv2d", "route": "cuda", "source": K1_SOURCE,
@@ -649,6 +929,7 @@ def main() -> int:
         "ms_over_library": total["ms"] / total["library_ms"],
         "launches_cover": "the serving path (16 streams x 8 frames, pool 8)",
         "launches_quickstart": qs_launches["ternary_conv2d"],
+        "launches_fleet": fleet["ungated"]["k1_launches"],
         "times_cover": "the 9 launches of one pool tick at pool size 8 (sum)",
         "shapes": per_shape,
     }, {
@@ -663,6 +944,7 @@ def main() -> int:
         "shapes": mm_rows,
     }]}
     print(json.dumps({"serving": serving}), flush=True)
+    print(json.dumps({"fleet": fleet}), flush=True)
     print(json.dumps(kernels), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -602,13 +602,44 @@ class DeployedProgram:
             raise ValueError(f"{self.graph.name} has no TCN memory to stream into")
         return StreamSession(self, batch=batch, backend=backend)
 
-    def serve(self, pool_size: int, backend: str = "fused"):
+    def serve(self, pool_size: int, backend: str = "fused", **kwargs):
         """Multi-sensor serving: a `repro_torch.serving.SessionPool` of
         ``pool_size`` slots over this program — one fixed-batch step,
-        streams admitted/evicted mid-flight (continuous batching)."""
+        streams admitted/evicted mid-flight (continuous batching).  Keyword
+        arguments pass through to the pool (``tracer``, ``sharding``)."""
         from repro_torch.serving import SessionPool
 
-        return SessionPool(self, pool_size, backend=backend)
+        return SessionPool(self, pool_size, backend=backend, **kwargs)
+
+    def serve_fleet(self, name: Optional[str] = None, backend: str = "fused",
+                    **kwargs):
+        """Fleet serving: a `repro_torch.serving.FleetRouter` with this
+        program registered under ``name`` (the graph name by default).
+        Register further nets on the returned router to serve many tenants
+        — bucketed pools, bounded admission FIFOs, ladder autoscaling,
+        async ingestion, optional activity gating."""
+        from repro_torch.serving import FleetRouter
+
+        router = FleetRouter(backend=backend, **kwargs)
+        router.register(name or self.graph.name, self)
+        return router
+
+    # -- artifact export (repro_torch.artifact) ----------------------------
+
+    def to_artifact_bytes(self) -> bytes:
+        """Assemble this program into ``.cutie`` container bytes — the
+        compiled plan + the packed deploy tables, verbatim.
+        ``artifact.loads`` gives back a `LoadedProgram` that executes,
+        streams and serves bit-identically with no graph."""
+        from repro_torch.artifact import assemble
+
+        return assemble(self)
+
+    def save_artifact(self, path) -> int:
+        """Write the ``.cutie`` artifact to ``path``; returns byte count."""
+        from repro_torch.artifact import save
+
+        return save(self, path)
 
     # -- silicon model -----------------------------------------------------
 

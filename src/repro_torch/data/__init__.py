@@ -1,4 +1,13 @@
 """Synthetic data pipelines of the port (numpy, device-free)."""
-from repro_torch.data.pipeline import DVSEventPipeline, PipelineState
+from repro_torch.data.pipeline import (
+    CifarLikePipeline,
+    DVSEventPipeline,
+    KWSSpectrogramPipeline,
+    PipelineState,
+    pipeline_for_net,
+)
 
-__all__ = ["DVSEventPipeline", "PipelineState"]
+__all__ = [
+    "CifarLikePipeline", "DVSEventPipeline", "KWSSpectrogramPipeline",
+    "PipelineState", "pipeline_for_net",
+]

@@ -1,5 +1,6 @@
-"""Serving launcher of the port: CUTIE multi-sensor streaming (``--dvs``).
-Counterpart of the ``--dvs`` path of `repro.launch.serve`.
+"""Serving launcher of the port: CUTIE multi-sensor streaming (``--dvs``)
+and multi-tenant fleet serving (``--fleet``).  Counterpart of the CUTIE
+paths of `repro.launch.serve` (its LM path is not ported).
 
 The paper's autonomous mode scaled out — an arrival/departure simulation of
 many DVS sensor streams continuously batched onto one
@@ -14,6 +15,23 @@ non-finite logits, or when a stream did not complete.
     python -m repro_torch.launch.serve --dvs --pool 8 --frames 8            # on the card
     python -m repro_torch.launch.serve --dvs --net dvs_cnn_tcn_smoke \\
         --pool 2 --streams 3 --frames 4 --device cpu                          # plain path
+    python -m repro_torch.launch.serve --dvs --program net.cutie --pool 8    # a shipped artifact
+    python -m repro_torch.launch.serve --fleet --fleet-nets dvs_cnn_tcn,kws_tcn \\
+        --pool 8 [--gate] [--out fleet.json]                                  # many nets
+
+``--program FILE.cutie`` serves a `repro_torch.artifact` (built with
+``python -m repro_torch.artifact build``) instead of quantizing ``--net``:
+no graph object on that path, the pool runs what the artifact holds.
+
+The fleet scenario (`serve_fleet_scenario`) registers ``--fleet-nets`` on
+one `FleetRouter` (``--pool`` is the bucket ladder's cap) with staggered
+arrivals, and exits non-zero on any pooled-vs-lone-session mismatch,
+non-finite logits, incomplete streams, or a bucket pool built or stepped
+into a second step program; with ``--gate`` each stream must also process
+exactly the frames `ActivityGate.plan` selects and the gate must save
+energy (CUTIE silicon-model uJ) whenever the trace has quiet frames.  The
+reference's ``--trace``, ``--trace-clock``, ``--metrics-out`` and
+``--shard`` are not defined here yet.
 
 ``--device`` defaults to ``cuda``; without a CUDA device that is an error,
 not a move to the CPU.  The default backend is "fused": conv + threshold
@@ -51,14 +69,28 @@ def serve_dvs(args) -> int:
         return 0
 
     n_streams = args.streams or 2 * args.pool
-    prog = get_net(args.net)
-    g = prog.graph
-    params = prog.init(torch.Generator().manual_seed(args.seed), device=device)
-    pipe = DVSEventPipeline(
-        n_streams, steps=args.frames, hw=g.input_hw[0], seed=args.seed
-    )
-    frames, labels = pipe.next_batch()
-    deployed = prog.quantize(params, calib=torch.from_numpy(frames).to(device))
+    if args.program:
+        # serve a shipped .cutie artifact: no CutieGraph, no quantization;
+        # the pool runs what the device would load
+        from repro_torch import artifact
+
+        deployed = artifact.load(args.program, device=device)
+        g = deployed.graph  # ProgramInfo — serving metadata only
+        print(f"[serve-dvs] program loaded from {args.program}: {g.name}, "
+              f"{deployed.nbytes} packed weight bytes")
+        pipe = DVSEventPipeline(
+            n_streams, steps=args.frames, hw=g.input_hw[0], seed=args.seed
+        )
+        frames, labels = pipe.next_batch()
+    else:
+        prog = get_net(args.net)
+        g = prog.graph
+        params = prog.init(torch.Generator().manual_seed(args.seed), device=device)
+        pipe = DVSEventPipeline(
+            n_streams, steps=args.frames, hw=g.input_hw[0], seed=args.seed
+        )
+        frames, labels = pipe.next_batch()
+        deployed = prog.quantize(params, calib=torch.from_numpy(frames).to(device))
 
     pool = deployed.serve(args.pool, backend=args.backend)
     batcher = ContinuousBatcher(pool)
@@ -82,7 +114,8 @@ def serve_dvs(args) -> int:
           f"{args.frames} frames through a {args.pool}-slot pool")
     print(f"[serve-dvs] {stats['frames_processed']} frames in "
           f"{stats['ticks']} ticks, {wall:.2f} s -> {fps:.0f} frames/s, "
-          f"mean occupancy {stats['mean_occupancy']:.2f}")
+          f"mean occupancy {stats['mean_occupancy']:.2f}, "
+          f"step programs built {pool.trace_count}")
     chance = f"untrained weights — chance is {1.0 / g.n_classes:.2f}"
     print(f"[serve-dvs] streaming accuracy {acc:.2f} "
           f"({chance if acc < 0.9 else 'vs ground-truth labels'}); "
@@ -112,6 +145,197 @@ def serve_dvs(args) -> int:
               file=sys.stderr)
         return 1
     return 0
+
+
+def serve_fleet_scenario(args) -> int:
+    """Multi-tenant fleet simulation over a `repro_torch.serving.FleetRouter`.
+
+    ``--fleet-nets`` registry TCN nets are registered as fleet tenants; each
+    gets ``--streams`` sensors (default 4) whose arrivals interleave across
+    nets (sensor s of net i arrives at tick i + s * n_nets), so every
+    bucket sees admissions, departures, autoscaling and FIFO spill.  Exit
+    non-zero on any pooled-vs-lone-session logit mismatch, non-finite
+    logits, incomplete streams, or any bucket pool built twice or building
+    its step program twice.  ``--out`` writes the fleet stats report as
+    JSON.  ``--gate`` runs the fleet activity-gated on a bursty
+    ``--duty-cycle`` trace: each gated stream must reproduce a lone session
+    fed exactly the frames `ActivityGate.plan` selects, its processed count
+    must match the plan, and each net must show a strictly positive energy
+    saving (silicon-model uJ) whenever the trace leaves frames quiet."""
+    import dataclasses
+    import json
+
+    from repro_torch.api import get_net
+    from repro_torch.data.pipeline import DVSEventPipeline, KWSSpectrogramPipeline
+    from repro_torch.serving import (
+        ActivityGate,
+        FleetRouter,
+        StreamRequest,
+        energy_summary,
+    )
+
+    device = resolve_device(args.device)
+    net_names = [n.strip() for n in args.fleet_nets.split(",") if n.strip()]
+    if len(net_names) < 2:
+        print(f"[serve-fleet] need >= 2 nets, got {net_names}", file=sys.stderr)
+        return 2
+    n_streams = args.streams or 4
+    gate = None
+    if args.gate:
+        gate = ActivityGate(
+            wake_threshold=args.wake_threshold,
+            park_threshold=args.park_threshold,
+            park_after=args.park_after,
+        )
+    duty = args.duty_cycle if args.duty_cycle is not None else (
+        0.4 if args.gate else 1.0
+    )
+    router = FleetRouter(
+        backend=args.backend,
+        max_pool_size=args.pool,
+        queue_limit=args.queue_limit,
+        shrink_after=args.shrink_after,
+        ingest=args.ingest,
+        gate=gate,
+    )
+    deps, clips = {}, {}
+    for idx, name in enumerate(net_names):
+        prog = get_net(name)
+        g = prog.graph
+        if not g.is_temporal:
+            print(f"[serve-fleet] {name} is not temporal; pick TCN nets",
+                  file=sys.stderr)
+            return 2
+        pipe_cls = DVSEventPipeline if g.input_ch == 2 else KWSSpectrogramPipeline
+        pipe = pipe_cls(
+            n_streams, steps=args.frames, hw=g.input_hw[0],
+            n_classes=g.n_classes, seed=args.seed + idx, duty_cycle=duty,
+        )
+        frames, labels = pipe.next_batch()
+        params = prog.init(torch.Generator().manual_seed(args.seed + idx), device=device)
+        deps[name] = prog.quantize(params, calib=torch.from_numpy(frames).to(device))
+        router.register(name, deps[name])
+        for s in range(n_streams):
+            sid = f"{name}/sensor-{s}"
+            clips[sid] = frames[s]
+            router.submit(StreamRequest(
+                stream_id=sid, frames=clips[sid], label=int(labels[s]),
+                arrival=idx + s * len(net_names), net=name,
+            ))
+
+    t0 = time.time()
+    results = router.run()
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    wall = time.time() - t0
+    stats = router.stats()
+    agg = stats["aggregate"]
+
+    threaded = any(s["ingest_threaded"] for s in stats["nets"].values())
+    gating = (f", gated duty~{duty:.2f}" if gate is not None else "")
+    print(f"[serve-fleet] {len(net_names)} nets x {n_streams} sensors x "
+          f"{args.frames} frames ({args.backend}, {device}, ladder cap {args.pool}, "
+          f"ingest={'thread' if threaded else 'sync'}{gating})")
+    print(f"[serve-fleet] {agg['frames_processed']} frames, "
+          f"{agg['completed']} streams in {agg['ticks']} ticks, {wall:.2f} s; "
+          f"fleet p50 {agg['latency_ms_p50']:.1f} ms / "
+          f"p99 {agg['latency_ms_p99']:.1f} ms per tick")
+    failures = []
+    for name in net_names:
+        s = stats["nets"][name]
+        scale = "".join(
+            f" {e['from_size']}->{e['to_size']}" for e in s["scale_events"]
+        ) or " (none)"
+        print(f"[serve-fleet]   {name}: completed {s['completed']}, "
+              f"built {s['pools_built']}, stepped {s['pools_traced']}, "
+              f"scale{scale}, p50 {s['latency_ms_p50']:.1f} ms")
+        # zero-rebuild contract: every rung's pool constructed once, and no
+        # pool ever built its step program twice
+        bad = {sz: n for sz, n in s["pools_built"].items() if n > 1}
+        bad.update({sz: tc for sz, tc in s["pools_traced"].items() if tc > 1})
+        if bad:
+            failures.append(f"{name}: rebuilt pools {bad}")
+        if not any(tc == 1 for tc in s["pools_traced"].values()):
+            failures.append(f"{name}: no pool ever stepped (bucket never ran)")
+
+    # per-stream bit-exactness vs lone StreamSessions.  Gated: the lone
+    # session is fed exactly the frames ActivityGate.plan selects
+    finite = all(
+        np.isfinite(r.logits).all() for r in results if r.logits is not None
+    )
+    checked = mismatched = 0
+    for r in results:
+        clip = clips[r.stream_id]
+        if gate is None:
+            processed = list(range(clip.shape[0]))
+        else:
+            plan = gate.plan([ActivityGate.activity(f) for f in clip])
+            processed = [t for t, p in enumerate(plan) if p]
+            if r.frames_processed != len(processed):
+                mismatched += 1
+                failures.append(
+                    f"{r.stream_id}: processed {r.frames_processed} frames, "
+                    f"gate plan says {len(processed)}")
+                continue
+        checked += 1
+        if not processed:
+            if r.logits is not None:
+                mismatched += 1
+                failures.append(f"{r.stream_id}: all-quiet stream has logits")
+            continue
+        session = deps[r.net].stream(batch=1, backend=args.backend)
+        for t in processed:
+            ref = session.step(torch.from_numpy(clip[t][None]).to(device))
+        if r.logits is None or not (ref.detach().cpu().numpy()[0] == r.logits).all():
+            mismatched += 1
+            failures.append(f"{r.stream_id}: pooled logits != lone session")
+    print(f"[serve-fleet] bit-exactness: {checked} streams replayed"
+          f"{' (gated frame plan)' if gate is not None else ''}, "
+          f"{mismatched} mismatches; logits finite: {finite}")
+    if not finite:
+        failures.append("non-finite logits")
+    if len(results) != len(net_names) * n_streams:
+        failures.append(
+            f"{len(results)}/{len(net_names) * n_streams} streams completed")
+
+    energy = {}
+    if gate is not None:
+        for name in net_names:
+            sg = stats["nets"][name]["gating"]
+            nres = [r for r in results if r.net == name]
+            energy[name] = energy_summary(
+                deps[name],
+                frames_processed=sg["frames_processed"],
+                frames_total=sg["frames_processed"] + sg["frames_skipped"],
+                completed=sum(1 for r in nres if r.logits is not None),
+            )
+            e = energy[name]
+            print(f"[serve-fleet]   {name}: {e['frames_skipped']} of "
+                  f"{e['frames_total']} frames skipped -> "
+                  f"{e['energy_uj_saved']:.2f} uJ saved on the CUTIE silicon "
+                  f"model, {e['energy_uj_per_classification']:.2f} "
+                  f"uJ/classification (ungated "
+                  f"{e['energy_uj_per_classification_ungated']:.2f})")
+            if duty < 1.0 and not e["energy_uj_saved"] > 0.0:
+                failures.append(
+                    f"{name}: non-positive gated energy saving "
+                    f"({e['energy_uj_saved']:.3f} uJ at duty {duty:.2f})")
+
+    if args.out:
+        report = {"scenario": {
+            "nets": net_names, "streams_per_net": n_streams,
+            "frames": args.frames, "backend": args.backend,
+            "device": str(device), "ladder_cap": args.pool, "wall_s": wall,
+            "gate": dataclasses.asdict(gate) if gate is not None else None,
+            "duty_cycle": duty,
+        }, "stats": stats, "energy": energy or None, "failures": failures}
+        with open(args.out, "w") as f:
+            json.dump(report, f, indent=2, default=float)
+        print(f"[serve-fleet] report -> {args.out}")
+    router.close()
+    for msg in failures:
+        print(f"[serve-fleet] FAIL: {msg}", file=sys.stderr)
+    return 1 if failures else 0
 
 
 def _verify_pool_vs_sessions(deployed, results, frames, backend, check: int):
@@ -144,30 +368,70 @@ def main(argv=None) -> int:
     from repro_torch.api import BACKENDS
 
     ap = argparse.ArgumentParser(
-        description="repro_torch serving launcher (DVS multi-sensor pool)")
+        description="repro_torch serving launcher (DVS multi-sensor pool, "
+                    "multi-net fleet)")
     ap.add_argument("--dvs", action="store_true",
-                    help="serve DVS sensor streams through a SessionPool "
-                         "(the only path of the port so far)")
+                    help="serve DVS sensor streams through a SessionPool")
     ap.add_argument("--backend", default="fused", choices=list(BACKENDS))
     ap.add_argument("--frames", type=int, default=8,
                     help="event frames per sensor stream")
     ap.add_argument("--net", default="dvs_cnn_tcn",
-                    help="registry net to serve (e.g. dvs_cnn_tcn_smoke)")
+                    help="dvs: registry net to serve (e.g. dvs_cnn_tcn_smoke)")
+    ap.add_argument("--program", default=None, metavar="FILE.cutie",
+                    help="dvs: serve a .cutie artifact (repro_torch.artifact) "
+                         "instead of quantizing --net")
     ap.add_argument("--pool", type=int, default=4,
-                    help="SessionPool slots (fixed batch width)")
+                    help="dvs: SessionPool slots (fixed batch width); with "
+                         "--fleet: the bucket ladder's cap")
     ap.add_argument("--streams", type=int, default=0,
-                    help="total sensor streams to serve (0 = 2x pool)")
+                    help="dvs: total sensor streams to serve (0 = 2x pool); "
+                         "with --fleet: streams PER NET (0 = 4)")
+    ap.add_argument("--fleet", action="store_true",
+                    help="multi-tenant FleetRouter scenario over --fleet-nets "
+                         "instead of a single SessionPool")
+    ap.add_argument("--fleet-nets",
+                    default="dvs_cnn_tcn_smoke,dvs_cnn_tcn_micro,dvs_cnn_tcn_nano",
+                    help="fleet: comma-separated registry nets to register as "
+                         "tenants (>= 2, temporal only)")
+    ap.add_argument("--queue-limit", type=int, default=64,
+                    help="fleet: bounded admission FIFO per bucket; overflow "
+                         "raises FleetQueueFull")
+    ap.add_argument("--shrink-after", type=int, default=3,
+                    help="fleet: calm ticks before a bucket shrinks down the "
+                         "ladder (grow is immediate)")
+    ap.add_argument("--ingest", default="auto",
+                    choices=["auto", "thread", "sync", "off"],
+                    help="fleet: host-side frame ingestion — feeder thread with "
+                         "double buffers (auto/thread), synchronous assembly "
+                         "(sync), or no prefetch at all (off)")
+    ap.add_argument("--gate", action="store_true",
+                    help="fleet: activity-gate the streams (park quiet sensors "
+                         "out of their pool slot, wake on events; adds the "
+                         "gated bit-exactness and energy-saving gates)")
+    ap.add_argument("--duty-cycle", type=float, default=None,
+                    help="fleet: fraction of frames carrying events in the "
+                         "synthetic traces (default 1.0, or 0.4 with --gate)")
+    ap.add_argument("--wake-threshold", type=int, default=16,
+                    help="gate: event count that wakes a parked stream")
+    ap.add_argument("--park-threshold", type=int, default=4,
+                    help="gate: event count below which a frame is quiet")
+    ap.add_argument("--park-after", type=int, default=2,
+                    help="gate: consecutive quiet frames before parking")
+    ap.add_argument("--out", default=None, metavar="FILE.json",
+                    help="fleet: write the full stats report as JSON")
     ap.add_argument("--check-streams", type=int, default=2,
-                    help="streams replayed through single sessions for the "
-                         "bit-exactness gate")
+                    help="dvs: streams replayed through single sessions for the "
+                         "bit-exactness gate (the fleet replays every stream)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; an error when no CUDA device is "
                          "available) or cpu (plain PyTorch path)")
     args = ap.parse_args(argv)
-    if not args.dvs:
-        ap.error("only the --dvs path is ported; pass --dvs")
-    return serve_dvs(args)
+    if args.fleet:
+        return serve_fleet_scenario(args)
+    if args.dvs:
+        return serve_dvs(args)
+    ap.error("the port serves --dvs or --fleet (the LM path is not ported)")
 
 
 if __name__ == "__main__":

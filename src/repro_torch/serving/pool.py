@@ -9,10 +9,14 @@ fixed-shape step.  Counterpart of `repro.serving.pool`.
 
 Key properties (tested in tests/test_torch_serving.py):
 
-  * **Fixed shape.**  Every tick runs the same ``[P, H, W, C]`` batch
-    through the same kernels; admit / evict / partial ticks are data (the
-    ``active`` mask and the frame batch), never shapes.  The step runs
-    eagerly; capturing it once as a CUDA graph is later work.
+  * **Fixed shape, one step program.**  Every tick runs the same
+    ``[P, H, W, C]`` batch through the same kernels; admit / evict /
+    partial ticks are data (the ``active`` mask and the frame batch), never
+    shapes.  The pool builds its step program once, at its first step, and
+    reuses it for its whole life; `trace_count` counts those builds (the
+    reference's jit trace count: 0 before the first step, 1 after, never
+    more).  The step runs eagerly; capturing it as a CUDA graph is not
+    done yet.
   * **Bit-exact per stream.**  Each slot's logits equal an independent
     `StreamSession` fed the same frames, on every backend.
   * **Migratable sessions.**  `evict` returns the stream's `StreamState`;
@@ -25,7 +29,13 @@ which clocks every OCU whether or not the pixel is useful.
 The pool is duck-typed over its program: anything exposing
 ``spatial_forward(frames, backend)`` / ``temporal_forward(windows,
 backend)``, a ``.device`` and a ``.graph`` with ``name`` / ``is_temporal`` /
-``input_hw`` / ``input_ch`` / ``tcn_steps`` / ``feature_channels``.
+``input_hw`` / ``input_ch`` / ``tcn_steps`` / ``feature_channels`` — a
+`DeployedProgram`, or a `repro_torch.artifact.LoadedProgram` whose ``.graph``
+is the artifact's `ProgramInfo` header.
+
+``sharding`` is accepted for the reference's signature and is a no-op on
+one device (``None``, ``False``, ``True``, ``"auto"`` or ``1``); laying the
+pool axis across several cards is not ported.
 """
 from __future__ import annotations
 
@@ -35,6 +45,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.tcn import StreamState
+from repro_torch.obs.tracer import NULL_TRACER
 from repro_torch.serving.masking import (
     PoolState,
     clear_slot,
@@ -43,6 +54,13 @@ from repro_torch.serving.masking import (
     ordered_windows,
     scatter_slot,
 )
+
+
+def host_frame(frame) -> np.ndarray:
+    """One frame (numpy array, or a tensor) as a host float32 array."""
+    if isinstance(frame, torch.Tensor):
+        frame = frame.detach().cpu().numpy()
+    return np.asarray(frame, np.float32)
 
 
 class PoolFullError(RuntimeError):
@@ -60,7 +78,8 @@ class SessionPool:
     where) is plain host-side Python.
     """
 
-    def __init__(self, deployed, pool_size: int, backend: str = "fused"):
+    def __init__(self, deployed, pool_size: int, backend: str = "fused",
+                 sharding=None, tracer=None):
         from repro_torch.api.program import check_backend
 
         check_backend(backend)
@@ -68,6 +87,13 @@ class SessionPool:
             raise ValueError(f"{deployed.graph.name} has no TCN memory to pool")
         if pool_size < 1:
             raise ValueError(f"pool_size must be >= 1, got {pool_size}")
+        if not (sharding is None or sharding is False or sharding is True
+                or sharding == "auto" or sharding == 1):
+            raise ValueError(
+                f"sharding={sharding!r}: the port's pool runs on one device; "
+                "laying the pool axis across devices is not ported"
+            )
+        self.sharding = None  # one device: the reference's "auto" resolves to None
         self.deployed = deployed
         self.pool_size = pool_size
         self.backend = backend
@@ -79,12 +105,27 @@ class SessionPool:
         )
         self._slots: List[Optional[str]] = [None] * pool_size
         self._slot_of: Dict[str, int] = {}
+        self._step = None
+        self._trace_count = 0
+        # observability: NULL_TRACER when tracing is off (no-op span, no
+        # branch in the hot path); spans wrap the step from the outside
+        self.tracer = tracer if tracer is not None else NULL_TRACER
+        self.track = getattr(deployed.graph, "name", "pool")
 
-    def _step(self, state: PoolState, frames: torch.Tensor, active: torch.Tensor):
-        feats = self.deployed.spatial_forward(frames, self.backend)
-        new = masked_push(state, feats, active)
-        logits = self.deployed.temporal_forward(ordered_windows(new), self.backend)
-        return logits, new
+    def _build_step(self):
+        """The pool's one step program: CNN frontend -> masked ring push ->
+        TCN head, bound to this pool's program and backend.  Built at the
+        first step, counted in `trace_count`, never rebuilt."""
+        self._trace_count += 1
+        deployed, backend = self.deployed, self.backend
+
+        def step(state: PoolState, frames: torch.Tensor, active: torch.Tensor):
+            feats = deployed.spatial_forward(frames, backend)
+            new = masked_push(state, feats, active)
+            logits = deployed.temporal_forward(ordered_windows(new), backend)
+            return logits, new
+
+        return step
 
     # -- admission control -------------------------------------------------
 
@@ -142,9 +183,7 @@ class SessionPool:
         batch = np.zeros((self.pool_size, *self.frame_shape), np.float32)
         active = np.zeros((self.pool_size,), bool)
         for sid, f in frames.items():
-            if isinstance(f, torch.Tensor):
-                f = f.detach().cpu().numpy()
-            f = np.asarray(f, np.float32)
+            f = host_frame(f)
             if f.shape == (1, *self.frame_shape):
                 f = f[0]
             if f.shape != self.frame_shape:
@@ -159,12 +198,18 @@ class SessionPool:
         """The device half of a tick: copy an assembled ``(batch, active)``
         pair (see `prepare`) to the pool's device, run the step, and return
         the full ``[P, n_classes]`` logits there — callers map slots back
-        to stream ids."""
-        logits, self.state = self._step(
-            self.state,
-            torch.from_numpy(batch).to(self.device),
-            torch.from_numpy(active).to(self.device),
-        )
+        to stream ids.  The copies from the host buffers are synchronous
+        (pageable memory, ``non_blocking=False``): when this returns the
+        buffers have been read, so a feeder may refill them at once."""
+        if self._step is None:
+            self._step = self._build_step()
+        with self.tracer.span("pool.step", track=self.track,
+                              pool_size=self.pool_size):
+            logits, self.state = self._step(
+                self.state,
+                torch.from_numpy(batch).to(self.device),
+                torch.from_numpy(active).to(self.device),
+            )
         return logits
 
     def step(self, frames: Mapping[str, object]) -> Dict[str, torch.Tensor]:
@@ -174,6 +219,13 @@ class SessionPool:
         Returns per-stream logits for exactly the streams that stepped."""
         logits = self.step_prepared(*self.prepare(frames))
         return {sid: logits[self._slot_of[sid]] for sid in frames}
+
+    def bind_tracer(self, tracer, track: Optional[str] = None) -> None:
+        """Attach a tracer (the batcher wires its own through so pool.step
+        spans land on the same lane as the tick spans)."""
+        self.tracer = tracer if tracer is not None else NULL_TRACER
+        if track is not None:
+            self.track = track
 
     # -- introspection -----------------------------------------------------
 
@@ -202,6 +254,13 @@ class SessionPool:
     def occupancy(self) -> float:
         """Live-stream fraction of the batch, 0..1."""
         return len(self._slot_of) / self.pool_size
+
+    @property
+    def trace_count(self) -> int:
+        """How many times this pool built its step program: 0 before the
+        first step, then 1 for the pool's whole life — the continuous-
+        batching contract (admit / evict / partial ticks never rebuild)."""
+        return self._trace_count
 
     def __contains__(self, stream_id: str) -> bool:
         return stream_id in self._slot_of

@@ -199,6 +199,27 @@ def inference_counts(
     return spatial * plan.passes_per_inference + head
 
 
+def evaluate_frame(
+    plan: ExecutionPlan,
+    hw: Optional[arch.CutieHW] = None,
+    v: float = 0.5,
+    params: Optional[SimParams] = None,
+    memory: Optional[WeightMemory] = None,
+    name: Optional[str] = None,
+) -> arch.NetReport:
+    """Price ONE sensor-frame step: every plan layer once — the spatial
+    frontend plus (for temporal nets) the TCN head over the ring window.
+    This is the unit of work an activity gate skips per quiet frame
+    (`repro_torch.serving.gating`), distinct from `evaluate_plan`, which
+    prices a *classification* (``passes_per_inference`` frontend passes +
+    head)."""
+    hw = hw or arch.CutieHW()
+    counts = count_plan(plan, hw, params, memory)
+    return arch.evaluate_network_counts(
+        f"{name or plan.graph_name}/frame", counts, hw, v
+    )
+
+
 def analytic_schedulable(plan: ExecutionPlan, hw: Optional[arch.CutieHW] = None) -> bool:
     """True when every kernel fits the native OCU window — the regime where
     the analytic pixel-per-cycle formula is a valid schedule and the

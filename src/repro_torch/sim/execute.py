@@ -20,9 +20,12 @@ effective scale is the same float32 constant the deploy interpreter folds;
 the threshold unit compares against the same scalar-or-vector constant.
 Inter-layer activations are int8 trits (the silicon's 2-bit feature memory).
 
-Each image is moved to the input's device once and cached there.  The
-plan's per-layer ``block_cout`` (`kernels.autotune`) is not passed to the
-kernels: the CUDA kernels pick their own tiles.
+Each image is moved to the input's device once and cached there, with
+what a step would otherwise rebuild every time: the FC image decoded to
+trits, and on the "fused" route a scalar threshold splatted to the
+kernel's ``[C_out]`` vector.  The plan's per-layer ``block_cout``
+(`kernels.autotune`) is not passed to the kernels: the CUDA kernels pick
+their own tiles.
 """
 from __future__ import annotations
 
@@ -81,21 +84,27 @@ class PlanExecutor:
     # -- images on the device ----------------------------------------------
 
     def _operands(self, lp: LayerPlan, device: torch.device):
-        """(image, packed uint8, eff_scale float32, threshold) of layer
-        ``lp`` on ``device``: copied there on first use, then reused.  A
-        scalar threshold stays a Python float."""
+        """(image, weights, eff_scale float32, threshold) of layer ``lp``
+        on ``device``: made there on first use, then reused.  ``weights``
+        is the packed uint8 image of a conv/TCN layer, and the decoded
+        float32 ``[c_in, N]`` trits of the FC layer.  A scalar threshold
+        stays a Python float, except on the "fused" route, where it is the
+        kernel's ``[C_out]`` float32 operand."""
         key = (lp.index, str(device))
         ops = self._on_device.get(key)
         if ops is None:
             img = self.memory.image_for(lp)
+            weights = torch.from_numpy(img.packed).to(device)
+            if lp.kind == "fc":
+                weights = unpack_ternary(weights, axis=0)[: lp.c_in].to(torch.float32)
             thr = img.threshold
             if not isinstance(thr, float):
                 thr = torch.from_numpy(thr).to(device)
+            elif self.backend == "fused" and lp.kind != "fc":
+                thr = torch.full((img.eff_scale.size,), thr, dtype=torch.float32,
+                                 device=device)
             ops = self._on_device[key] = (
-                img,
-                torch.from_numpy(img.packed).to(device),
-                torch.from_numpy(img.eff_scale).to(device),
-                thr,
+                img, weights, torch.from_numpy(img.eff_scale).to(device), thr,
             )
         return ops
 
@@ -173,8 +182,7 @@ class PlanExecutor:
     def _fc(self, x: torch.Tensor, lp: LayerPlan) -> torch.Tensor:
         """The OPU: integer trit dot FIRST, per-class scale AFTER — the
         order that keeps logits bit-identical across batch shapes."""
-        img, packed, eff, _ = self._operands(lp, x.device)
-        t = unpack_ternary(packed, axis=0)[: lp.c_in]
+        img, t, eff, _ = self._operands(lp, x.device)
         if not x.is_floating_point():
             x = x.to(torch.float32)
         with exact_float32():
