@@ -15,7 +15,11 @@ version.  It imports `repro_torch` only.
     ``kws_tcn``) shipped as ``.cutie`` bytes, loaded on the card with no
     graph, and served together through one `FleetRouter` on ``fused``
     (kernel K1 through the plan executor), ungated and activity-gated,
-    then through the launcher's ``--dvs --program`` and ``--fleet --gate``.
+    then through the launcher's ``--dvs --program`` and ``--fleet --gate``;
+  * the training path — `repro_torch.train.train` (STE QAT, AdamW,
+    checkpoints) at full width on ``cifar10_tnn`` and ``dvs_cnn_tcn``,
+    ending in the deployed eval on ``fused`` (kernel K1), a resume on the
+    card, and the training launcher with its trace.
 
 Phases (any failure ends the run with a non-zero exit code and no result
 line):
@@ -66,7 +70,25 @@ line):
                 silicon-model energy saving.  Then `repro_torch.launch.serve`
                 ``--dvs --program`` and ``--fleet --gate`` exit 0.  Prints
                 the ``fleet`` JSON line
-  7. result     the ``kernels`` JSON line (each kernel's time beside its
+  7. train      the launcher's smoke recipe on full-width ``cifar10_tnn``
+                (96 channels, 32x32x3, 8 conv + FC; 200 steps, batch 32,
+                lr 3e-3, seed-0 synthetic data, eval on ``fused``): every
+                loss finite, the smoke gate (loss decreased, |QAT -
+                deployed| <= 0.15), the trained program's fused == ref on
+                an eval batch, 8 K1 launches per eval batch.  Full-width
+                ``dvs_cnn_tcn`` (96 channels, 64x64x2, 5 conv + 4 TCN; 10
+                steps, batch 8, lr 5e-3): finite losses, finite non-zero
+                gradients on every layer at step 1, 9 K1 launches per
+                deployed eval forward.  On ``cifar10_tnn_smoke``: 8 steps
+                straight == 4 + restore + 4 (losses and params
+                `torch.equal`).  ``python -m repro_torch.launch.train --net
+                cifar10_tnn_smoke --smoke --trace`` and ``python -m
+                repro_torch.obs summarize`` exit 0 and the trace nests.
+                Times a full-width QAT forward + backward under the
+                deterministic cuDNN settings the trainer uses and under
+                cuDNN's autotuned ones, in turns.  Prints the ``train``
+                JSON line
+  8. result     the ``kernels`` JSON line (each kernel's time beside its
                 bound, plain version and library yardstick, all from this
                 run), the card line, and the last line
                 ``{"ok": true, "device": {...}}``
@@ -77,8 +99,9 @@ x, bf16 mmas otherwise, three per product for float32 x (hi + mid + lo)
 unless every value of x is bf16-exact, where one does.
 
 Each path is driven with the launch counts set to 0 just before it and read
-just after (the fleet per bucket tick); launches made to compare a kernel
-with its plain version fall outside those windows.
+just after (the fleet per bucket tick, the trainer per `train` call);
+launches made to compare a kernel with its plain version fall outside
+those windows.
 
 Timing: CUDA events around a run of launches that were enqueued behind a
 spin kernel, after a warm-up, so the figures are device time and not the
@@ -89,6 +112,8 @@ found in L2, which is what the timed loop reproduces.
 from __future__ import annotations
 
 import json
+import os
+import shutil
 import subprocess
 import sys
 import time
@@ -126,6 +151,14 @@ FLEET_SENSORS = 16       # per net: sensors 0-11 in the first wave, 12-15 later
 FLEET_WAVE2_TICK = 30    # after the first wave has drained (about tick 20)
 GATED_SENSORS = 8        # per net
 GATED_DUTY = 0.4
+
+# the training path: (net, K1 launches per deployed eval forward, channels,
+# input, input channels, conv layers, tcn layers)
+TRAIN_SPATIAL = ("cifar10_tnn", 8, 96, (32, 32), 3, 8, 0)
+TRAIN_TEMPORAL = ("dvs_cnn_tcn", 9, 96, (64, 64), 2, 5, 4)
+TRAIN_TEMPORAL_RECIPE = {"steps": 10, "batch": 8, "lr": 5e-3}
+TRAIN_EVAL_BATCHES = 4
+DETERMINISM_STEPS = 20   # QAT steps timed per cuDNN setting, in turns
 
 # (name, H, W, C_in, C_out, K, pool, input dtype) — the nine launches of one
 # pool tick of dvs_cnn_tcn (5 conv + 4 TCN layers; TCN maps carry the extra
@@ -880,6 +913,184 @@ def fleet_path(dev):
     }
 
 
+def _check_width(graph, spec):
+    name, _per_eval, ch, hw, in_ch, n_conv, n_tcn = spec
+    kinds = [l.kind for l in graph.layers]
+    got = (graph.feature_channels if graph.is_temporal else
+           max(l.c_out for l in graph.layers if l.kind == "conv2d"),
+           tuple(graph.input_hw), graph.input_ch, kinds.count("conv2d"), kinds.count("tcn"))
+    if got != (ch, hw, in_ch, n_conv, n_tcn):
+        fail(f"{name} is not at full width: {got}")
+
+
+def _fwd_bwd_ms(prog, params, batch, deterministic: bool) -> float:
+    """Host ms per QAT forward + backward (each ends in a synchronise) with
+    cuDNN deterministic and not autotuned (the trainer's setting, see
+    `kernels.ref.deterministic_float32`) or autotuned and free to pick any
+    algorithm; TF32 off in both."""
+    from repro_torch.train import cross_entropy
+    from repro_torch.tree import tree_leaves, tree_unflatten
+
+    leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
+    x, y = (torch.from_numpy(a).to(leaves[0].device) for a in batch)
+    flags = (dict(benchmark=False, deterministic=True) if deterministic
+             else dict(benchmark=True, deterministic=False))
+
+    def once():
+        loss = cross_entropy(prog.forward_qat(tree_unflatten(params, leaves), x), y)
+        torch.autograd.grad(loss, leaves)
+        torch.cuda.synchronize()
+
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False, **flags):
+        for _ in range(3):
+            once()
+        t0 = time.perf_counter()
+        for _ in range(DETERMINISM_STEPS):
+            once()
+        return (time.perf_counter() - t0) / DETERMINISM_STEPS * 1e3
+
+
+def train_path(dev):
+    """Phase 7: the training path at full width, then a resume on the card
+    and the launcher with its trace.  Returns (the ``train`` report, K1
+    launches of the full-width spatial run)."""
+    import dataclasses
+
+    from repro_torch.api import CutieProgram, get_graph
+    from repro_torch.data.pipeline import pipeline_for_net
+    from repro_torch.kernels.ternary_conv2d import ternary_conv2d_cuda
+    from repro_torch.launch.train import SMOKE_GAP_BOUND, smoke_recipe
+    from repro_torch.obs import load, validate_nesting
+    from repro_torch.train import cross_entropy, init_train_state, train
+    from repro_torch.train.evaluate import eval_batches
+    from repro_torch.tree import tree_leaves, tree_unflatten
+
+    t_phase = time.perf_counter()
+    root = REPO / "build" / "chip_smoke_train"
+    shutil.rmtree(root, ignore_errors=True)
+    quiet = lambda *_: None  # noqa: E731
+    out = {"nets": {}}
+
+    def run(spec, **kw):
+        name, per_eval = spec[0], spec[1]
+        _check_width(get_graph(name), spec)
+        ternary_conv2d_cuda.launches = 0
+        rep = train(name, seed=SEED, ckpt_dir=root / name, backend="fused",
+                    device="cuda", log=quiet, **kw)
+        launches = ternary_conv2d_cuda.launches
+        if not rep.losses or not all(np.isfinite(rep.losses)):
+            fail(f"train {name}: a loss is not finite: {rep.losses[:5]} ...")
+        n_eval = kw.get("eval_batches", 4)
+        # constant schedules: no segment eval, so every launch is the final
+        # eval's deployed forward
+        if rep.evals or launches != per_eval * n_eval:
+            fail(f"train {name}: {launches} K1 launches over {n_eval} eval batches; "
+                 f"the deployed forward makes {per_eval} per batch")
+        n = len(rep.losses)
+        q = max(n // 4, 1)
+        e = rep.final_eval
+        out["nets"][name] = {
+            "steps": n, "batch": kw["batch"], "lr": kw["lr"],
+            "ms_per_step": rep.ms_per_step, "wall_s": rep.wall_s,
+            "loss_first_quarter_mean": sum(rep.losses[:q]) / q,
+            "loss_last_quarter_mean": sum(rep.losses[-q:]) / q,
+            "loss_decreased": rep.loss_decreased, "qat_accuracy": e.qat_accuracy,
+            "deployed_accuracy": e.deployed_accuracy, "gap": e.gap,
+            "eval_examples": e.n_examples, "k1_launches": launches,
+            "k1_launches_per_eval_batch": launches / n_eval, "restarts": rep.restarts,
+        }
+        print(f"[chip_smoke] train: {name} {n} steps x batch {kw['batch']}, "
+              f"{rep.ms_per_step:.2f} ms/step, loss {out['nets'][name]['loss_first_quarter_mean']:.4f}"
+              f" -> {out['nets'][name]['loss_last_quarter_mean']:.4f}, {e.summary()}, "
+              f"{launches} K1 launches", flush=True)
+        return rep, launches
+
+    # full-width spatial: the launcher's smoke recipe, gated as the launcher gates it
+    recipe = smoke_recipe(TRAIN_SPATIAL[0])
+    rep, k1_spatial = run(TRAIN_SPATIAL, eval_batches=TRAIN_EVAL_BATCHES, **recipe)
+    failures = rep.gate(SMOKE_GAP_BOUND)
+    if failures:
+        fail(f"train {TRAIN_SPATIAL[0]}: smoke gate: {'; '.join(failures)}")
+    pipe = pipeline_for_net(get_graph(TRAIN_SPATIAL[0]), recipe["batch"], seed=SEED)
+    x_eval = torch.from_numpy(eval_batches(pipe, 1)[0][0]).to(dev)
+    fused = rep.deployed.forward(x_eval, backend="fused")
+    ref = rep.deployed.forward(x_eval, backend="ref")
+    if not torch.equal(fused, ref):
+        fail(f"train {TRAIN_SPATIAL[0]}: trained fused != ref: "
+             f"max|diff|={(fused - ref).abs().max().item()}")
+
+    # full-width temporal: every layer takes a finite, non-zero gradient at step 1
+    name = TRAIN_TEMPORAL[0]
+    graph = dataclasses.replace(get_graph(name), qat_per_channel=True)
+    prog = CutieProgram(graph)
+    state = init_train_state(prog, torch.Generator().manual_seed(SEED), device=dev)
+    xb, yb = pipeline_for_net(graph, TRAIN_TEMPORAL_RECIPE["batch"], seed=SEED).batch_at(0)
+    leaves = [p.detach().requires_grad_() for p in tree_leaves(state["params"])]
+    loss = cross_entropy(prog.forward_qat(tree_unflatten(state["params"], leaves),
+                                          torch.from_numpy(xb).to(dev)),
+                         torch.from_numpy(yb).to(dev))
+    grads = torch.autograd.grad(loss, leaves)
+    for i, g in enumerate(grads):
+        if not bool(torch.isfinite(g).all()) or not float(g.abs().max()) > 0:
+            fail(f"train {name}: gradient leaf {i} {tuple(g.shape)} not finite or all zero")
+    run(TRAIN_TEMPORAL, eval_batches=1, **TRAIN_TEMPORAL_RECIPE)
+    out["nets"][name]["grad_leaves_nonzero_at_step_1"] = len(grads)
+
+    # resume on the card: 8 straight == 4 + restore + 4, bit for bit
+    kw = dict(steps=8, batch=8, lr=1e-3, seed=3, ckpt_every=4, eval_batches=1,
+              device="cuda", log=quiet)
+    full = train("cifar10_tnn_smoke", ckpt_dir=root / "resume_a", **kw)
+    half = train("cifar10_tnn_smoke", ckpt_dir=root / "resume_b", **{**kw, "steps": 4})
+    resumed = train("cifar10_tnn_smoke", ckpt_dir=root / "resume_b", **kw)
+    if half.losses != full.losses[:4] or resumed.losses != full.losses[4:]:
+        fail(f"resume on the card: losses differ {full.losses} vs "
+             f"{half.losses} + {resumed.losses}")
+    for a, b in zip(tree_leaves(resumed.params), tree_leaves(full.params)):
+        if not torch.equal(a, b):
+            fail("resume on the card: params after 4 + restore + 4 != 8 straight")
+    print("[chip_smoke] train: resume on the card bit-identical (8 steps == 4 + restore + 4)",
+          flush=True)
+
+    # the cost of the deterministic cuDNN settings, in turns
+    sprog = CutieProgram(dataclasses.replace(get_graph(TRAIN_SPATIAL[0]), qat_per_channel=True))
+    sstate = init_train_state(sprog, torch.Generator().manual_seed(SEED), device=dev)
+    sbatch = pipeline_for_net(sprog.graph, recipe["batch"], seed=SEED).batch_at(0)
+    det, fast = [], []
+    for deterministic in (True, False, False, True):
+        (det if deterministic else fast).append(
+            _fwd_bwd_ms(sprog, sstate["params"], sbatch, deterministic))
+    out["fwd_bwd_ms_deterministic"] = det
+    out["fwd_bwd_ms_autotuned"] = fast
+    print(f"[chip_smoke] train: {TRAIN_SPATIAL[0]} QAT forward+backward {det} ms with "
+          f"deterministic cuDNN, {fast} ms autotuned (host clock, {DETERMINISM_STEPS} "
+          f"each, in turns)", flush=True)
+
+    # the launcher as a user runs it, then the trace CLI
+    trace = root / "train_trace.json"
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        [str(REPO / "src")] + [p for p in [os.environ.get("PYTHONPATH")] if p])}
+    for argv in (["-m", "repro_torch.launch.train", "--net", "cifar10_tnn_smoke", "--smoke",
+                  "--trace", str(trace), "--ckpt-dir", str(root / "launcher"),
+                  "--device", "cuda"],
+                 ["-m", "repro_torch.obs", "summarize", str(trace)]):
+        res = subprocess.run([sys.executable, *argv], cwd=REPO, env=env,
+                             capture_output=True, text=True, timeout=600)
+        if res.returncode != 0:
+            fail(f"python {' '.join(argv)} exited {res.returncode}:\n"
+                 f"{res.stdout[-2000:]}\n{res.stderr[-2000:]}")
+        print(f"[chip_smoke] train: python {' '.join(argv[:2])} ... exit 0: "
+              f"{res.stdout.strip().splitlines()[-1]}", flush=True)
+    problems = validate_nesting(load(str(trace)))
+    if problems:
+        fail(f"train trace does not nest: {problems[:3]}")
+    out["k1_launches"] = sum(n["k1_launches"] for n in out["nets"].values())
+    out["restarts"] = sum(n["restarts"] for n in out["nets"].values())
+    out["resume_bit_identical"] = True
+    out["launcher_trace_nests"] = True
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out, k1_spatial
+
+
 def main() -> int:
     # phase 1: device
     if not torch.cuda.is_available():
@@ -918,7 +1129,10 @@ def main() -> int:
     # phase 6: the deployment path
     fleet = fleet_path(dev)
 
-    # phase 7: results
+    # phase 7: the training path
+    train_report, k1_train = train_path(dev)
+
+    # phase 8: results
     mm = mm_rows[0]  # the quickstart's launch: 64x2048x512 float32
     kernels = {"kernels": [{
         "name": "ternary_conv2d", "route": "cuda", "source": K1_SOURCE,
@@ -930,6 +1144,8 @@ def main() -> int:
         "launches_cover": "the serving path (16 streams x 8 frames, pool 8)",
         "launches_quickstart": qs_launches["ternary_conv2d"],
         "launches_fleet": fleet["ungated"]["k1_launches"],
+        "launches_train": k1_train,
+        "launches_train_cover": "the final deployed eval of the full-width cifar10_tnn run",
         "times_cover": "the 9 launches of one pool tick at pool size 8 (sum)",
         "shapes": per_shape,
     }, {
@@ -945,6 +1161,7 @@ def main() -> int:
     }]}
     print(json.dumps({"serving": serving}), flush=True)
     print(json.dumps({"fleet": fleet}), flush=True)
+    print(json.dumps({"train": train_report}), flush=True)
     print(json.dumps(kernels), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

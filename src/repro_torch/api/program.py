@@ -4,6 +4,7 @@ Counterpart of `repro.api.program`:
 
     prog     = get_net("dvs_cnn_tcn")                       # repro_torch.api.registry
     params   = prog.init(torch.Generator().manual_seed(0))  # device="cuda"
+    logits   = prog.forward_qat(params, frames)             # STE fake-quant training path
     deployed = prog.quantize(params, calib=frames)          # packed 2-bit weights
     logits   = deployed.forward(frames, backend="fused")    # | "kernel" | "ref" | "bitsim"
     session  = deployed.stream(batch=4)                     # TCN ring memory
@@ -31,9 +32,11 @@ registry nets), since all then accumulate exactly in float32 under any
 summation order.  The reference's "interpret" backend (the Pallas
 interpreter) has no counterpart; `check_backend` says so.
 
-The QAT half here is **forward only** (`quantize(calib=...)` needs the
-fake-quant forward to record the batch-norm statistics); training arrives
-with the STE backward.
+The QAT half (`forward_qat`) is differentiable end to end: STE fake-quant
+weights and activations (`core.ternary`), the scale-only batch-norm's
+population std, the §4 wrap/unwrap of the TCN layers and max-pools whose
+gradient goes to the first maximum of each window, as the reference's
+``reduce_window`` does.  `repro_torch.train` trains through it.
 """
 from __future__ import annotations
 
@@ -63,7 +66,7 @@ from repro_torch.core.ternary import (
 )
 from repro_torch.device import resolve_device
 from repro_torch.kernels.ops import ternary_conv2d
-from repro_torch.kernels.ref import exact_float32, ternary_conv2d_ref
+from repro_torch.kernels.ref import deterministic_float32, exact_float32, ternary_conv2d_ref
 
 BACKENDS = ("fused", "kernel", "ref", "bitsim")
 SILICON_SOURCES = ("analytic", "sim")
@@ -88,12 +91,12 @@ def check_backend(backend: str) -> None:
 
 def _pool(x: torch.Tensor, window: int) -> torch.Tensor:
     """Max pool, window == stride, VALID, on [B,H,W,C].  Integer trits (the
-    fused backend's int8 maps) are pooled in float32 and cast back."""
-    b, h, w, c = x.shape
-    oh, ow = h // window, w // window
-    y = x[:, : oh * window, : ow * window].to(torch.float32)
-    y = y.reshape(b, oh, window, ow, window, c).amax(dim=(2, 4))
-    return y.to(x.dtype)
+    fused backend's int8 maps) are pooled in float32 and cast back.  The
+    gradient of a window goes to its first maximum in row-major order —
+    the reference's ``reduce_window`` max (``amax`` would split it among
+    ties, and ternary maps tie in most windows)."""
+    y = F.max_pool2d(x.to(torch.float32).permute(0, 3, 1, 2), window)
+    return y.permute(0, 2, 3, 1).to(x.dtype)
 
 
 def _bn_sd(y: torch.Tensor) -> torch.Tensor:
@@ -156,7 +159,7 @@ def _ring_window(feats: torch.Tensor, tcn_steps: int) -> torch.Tensor:
 
 
 class CutieProgram:
-    """A compiled (validated) graph: init + QAT forward values + quantization."""
+    """A compiled (validated) graph: init + QAT forward + quantization."""
 
     def __init__(self, graph: CutieGraph):
         self.graph = graph.validate()
@@ -219,7 +222,7 @@ class CutieProgram:
                 p["thresh"]["tcn"] = [t0(l) for l in tcns]
         return p
 
-    # -- QAT interpreter (forward values only) -----------------------------
+    # -- QAT interpreter ---------------------------------------------------
 
     def _qat_threshold(self, params: Dict, kind: str, idx: int):
         th = params.get("thresh")
@@ -231,9 +234,10 @@ class CutieProgram:
         self, params: Dict, x: torch.Tensor, _record: Optional[List] = None,
         nu: Optional[float] = None,
     ) -> torch.Tensor:
-        """The 2-D frontend on [B, H, W, C_in] with fake-quantized weights
-        and activations (forward values; no gradient path yet).  ``nu``
-        overrides the graph's TWN threshold factor."""
+        """The 2-D frontend on [B, H, W, C_in] with STE fake-quantized
+        weights and activations — per frame for temporal graphs, the whole
+        net (including fc) for spatial ones.  ``nu`` overrides the graph's
+        TWN threshold factor."""
         g = self.graph
         nu = g.weight_nu if nu is None else nu
         ci = 0
@@ -327,7 +331,14 @@ class CutieProgram:
         per-OCU scale.  Without it, a 1/sqrt(fan-in) normalization keeps
         accumulations in range.  ``nu`` overrides the graph's TWN threshold
         factor; learned thresholds are clamped and folded into each entry's
-        ``"threshold"``."""
+        ``"threshold"``.  Runs under `torch.no_grad` (the tables are
+        constants, never part of a training graph) and calibrates in the
+        training numerics (`kernels.ref.deterministic_float32`: no TF32)."""
+        with torch.no_grad(), deterministic_float32():
+            return self._quantize(params, calib, nu)
+
+    def _quantize(self, params: Dict, calib: Optional[torch.Tensor],
+                  nu: Optional[float]) -> "DeployedProgram":
         g = self.graph
         nu = g.weight_nu if nu is None else nu
         tables: Dict = {"conv": [], "tcn": [], "fc": {}}

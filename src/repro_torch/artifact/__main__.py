@@ -20,8 +20,12 @@ Examples:
 device that is an error, not a move to the CPU — pass ``--device cpu`` for
 the plain PyTorch path.  A net built here differs from the reference CLI's
 build of the same net: `init` draws from a `torch.Generator`, not from
-`jax.random` (the container format is the same).  The reference's
-``--ckpt`` (restore trained params) waits for the port's checkpoints.
+`jax.random` (the container format is the same).  ``build --ckpt DIR``
+packs trained params instead: the newest committed checkpoint under DIR,
+written by `repro_torch.train` or `repro.train` (a ``{"params", "opt"}``
+train state) or holding params alone; ``--per-channel`` calibrates on the
+per-OCU QAT grid `train()` trains on by default, and ``--calib-batch`` set
+to the run's batch calibrates on the batch `train()` calibrated on.
 
 ``verify`` exercises the whole round trip (assemble -> write -> load ->
 execute) with zero graph objects and exits non-zero on any mismatch.
@@ -29,12 +33,37 @@ execute) with zero graph objects and exits non-zero on any mismatch.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import sys
 
 import numpy as np
 import torch
 
+from repro_torch.api.program import CutieProgram
 from repro_torch.device import resolve_device
+
+
+def restore_params(ckpt_dir, prog, device):
+    """Trained params of ``prog`` from the newest committed checkpoint under
+    ``ckpt_dir``: a ``{"params", "opt"}`` train state or params alone, with
+    no, scalar or per-channel learned thresholds — whichever structure the
+    checkpoint's leaf count and shapes fit.  Returns ``(params, meta)``."""
+    from repro_torch.ckpt.checkpoint import restore_checkpoint
+    from repro_torch.optim.adamw import adamw_init
+
+    tried = []
+    for learn in (False, True, "per_channel"):
+        like = prog.init(torch.Generator().manual_seed(0), learn_thresholds=learn,
+                         device=device)
+        for state in ({"params": like, "opt": adamw_init(like)}, like):
+            try:
+                restored, meta = restore_checkpoint(ckpt_dir, state)
+            except ValueError as e:
+                tried.append(str(e))
+                continue
+            return (restored["params"] if "opt" in state else restored), meta
+    raise ValueError(f"{ckpt_dir}: no params structure of {prog.graph.name} fits "
+                     f"the checkpoint ({'; '.join(tried)})")
 
 
 def _build(args) -> int:
@@ -43,8 +72,15 @@ def _build(args) -> int:
 
     dev = resolve_device(args.device)
     prog = get_net(args.net)
+    if args.per_channel:
+        prog = CutieProgram(dataclasses.replace(prog.graph, qat_per_channel=True))
     g = prog.graph
-    params = prog.init(torch.Generator().manual_seed(args.seed), device=dev)
+    if args.ckpt:
+        params, meta = restore_params(args.ckpt, prog, dev)
+        print(f"[artifact] params restored from {args.ckpt} "
+              f"(step {meta.get('step')})")
+    else:
+        params = prog.init(torch.Generator().manual_seed(args.seed), device=dev)
     calib = None
     if not args.no_calib:
         batch = pipeline_for_net(g, batch=args.calib_batch, seed=args.seed)
@@ -171,6 +207,11 @@ def main(argv=None) -> int:
     b.add_argument("--no-calib", action="store_true",
                    help="skip BN calibration (1/sqrt(fan-in) scales)")
     b.add_argument("--calib-batch", type=int, default=8)
+    b.add_argument("--ckpt", default=None,
+                   help="checkpoint dir to restore trained params from "
+                        "(repro_torch.ckpt or repro.ckpt layout)")
+    b.add_argument("--per-channel", action="store_true",
+                   help="calibrate on the per-OCU QAT grid (train()'s default)")
     b.add_argument("--device", default="cuda", help=device_help)
     b.set_defaults(fn=_build)
 

@@ -26,7 +26,8 @@ _ARRAY_DTYPES = {
 
 
 def _tensor(a, dtype, device) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(np.asarray(a))).to(device=device, dtype=dtype)
+    # a writable C-ordered copy (a 0-d array stays 0-d)
+    return torch.from_numpy(np.array(a, order="C")).to(device=device, dtype=dtype)
 
 
 def _entry(entry: Dict, device) -> Dict:
@@ -83,3 +84,22 @@ def params_from_reference(params_numpy: Dict, device="cuda") -> Dict:
             kind: [conv(t) for t in ts] for kind, ts in params_numpy["thresh"].items()
         }
     return p
+
+
+def train_state_from_reference(state_numpy: Dict, device="cuda") -> Dict:
+    """The reference's QAT train state ``{"params", "opt": AdamWState(step,
+    m, v)}`` handed over as numpy (the NamedTuple, or any ``(step, m, v)``
+    sequence) as the port's state on ``device``: float32 params and
+    moments, an int32 0-d ``step``."""
+    from repro_torch.optim.adamw import AdamWState
+
+    dev = resolve_device(device)
+    step, m, v = state_numpy["opt"]
+    return {
+        "params": params_from_reference(state_numpy["params"], device=dev),
+        "opt": AdamWState(
+            step=_tensor(step, torch.int32, dev),
+            m=params_from_reference(m, device=dev),
+            v=params_from_reference(v, device=dev),
+        ),
+    }

@@ -6,10 +6,11 @@ Counterpart of `repro.core.ternary`:
     threshold ``delta = nu * mean(|w|)`` and scale
     ``alpha = mean(|w| : |w| > delta)``.
   * ``ternary_quantize_acts`` — symmetric activation ternarizer.
-  * ``ste_ternary_weights`` / ``ste_ternary_acts`` — the QAT fake-quant
-    **forward values only**.  The calibration forward of
-    `CutieProgram.quantize` needs them; their straight-through backward
-    (`torch.autograd.Function`) arrives with the training port.
+  * ``ste_ternary_weights`` / ``ste_ternary_acts`` — the QAT fake-quant as
+    straight-through estimators (`torch.autograd.Function`s built from
+    plain tensor ops): the forward sees the quantized value, the backward
+    is the reference's — clip-STE on the weights, a hard-tanh window on
+    the activations plus a surrogate gradient on a trainable threshold.
   * 2-bit packing codec and its select-mask reading, bit-identical to the
     reference: t in {-1,0,+1} -> code (t+1) in {0,1,2}, 4 codes per byte,
     value ``i`` in bits ``2i..2i+1``.
@@ -73,21 +74,83 @@ def ternary_quantize_acts(x: torch.Tensor, *, threshold=0.5) -> torch.Tensor:
     return torch.where(x.abs() > threshold, torch.sign(x), zero)
 
 
+# ---------------------------------------------------------------------------
+# Straight-through estimators (QAT)
+# ---------------------------------------------------------------------------
+
+class _STEWeights(torch.autograd.Function):
+    """Forward ``alpha * ternary(w)``; backward passes ``g`` through inside
+    the ``|w| <= max(max|w|, 1e-6)`` band (clip-STE).  ``nu`` and ``axis``
+    take no gradient."""
+
+    @staticmethod
+    def forward(ctx, w, nu, axis):
+        ctx.save_for_backward(w)
+        t, alpha = ternary_quantize_weights(w, nu=nu, axis=axis)
+        return alpha * t.to(w.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        (w,) = ctx.saved_tensors
+        absw = w.abs()
+        bound = torch.clamp(absw.max(), min=1e-6)
+        return torch.where(absw <= bound, g, torch.zeros_like(g)), None, None
+
+
 def ste_ternary_weights(w: torch.Tensor, nu: float, axis: Axis = None) -> torch.Tensor:
-    """Forward value of the weight fake-quant: ``alpha * ternary(w)`` on the
-    grouping :func:`ternary_quantize_weights` uses.  Forward only."""
-    t, alpha = ternary_quantize_weights(w, nu=nu, axis=axis)
-    return alpha * t.to(w.dtype)
+    """Weight fake-quant: ``alpha * ternary(w)`` on the grouping
+    :func:`ternary_quantize_weights` uses (``axis=(0,1,2)`` on a conv weight
+    is the per-OCU scale the silicon applies), with the reference's
+    clip-STE backward on ``w``."""
+    return _STEWeights.apply(w, nu, axis)
+
+
+class _STEActs(torch.autograd.Function):
+    """Forward: ternarize with ``threshold``.  Backward: ``g`` passes to
+    ``x`` where ``|x| <= 2*t + 1``; the threshold gets the surrogate
+    ``-sum(g * sign(x) * [||x| - t| <= 0.5])`` — over everything for a
+    scalar ``t`` divided by ``sqrt(g.numel())``, over the leading axes for
+    a ``[C]`` vector divided by ``sqrt(g.numel() // C)``."""
+
+    @staticmethod
+    def forward(ctx, x, threshold):
+        ctx.threshold_is_tensor = isinstance(threshold, torch.Tensor)
+        t = threshold if ctx.threshold_is_tensor else torch.tensor(
+            float(threshold), dtype=x.dtype, device=x.device)
+        ctx.save_for_backward(x, t)
+        return ternary_quantize_acts(x, threshold=threshold)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, t = ctx.saved_tensors
+        zero = torch.zeros((), dtype=g.dtype, device=g.device)
+        dx = torch.where(x.abs() <= 2.0 * t + 1.0, g, zero) if ctx.needs_input_grad[0] else None
+        if not (ctx.threshold_is_tensor and ctx.needs_input_grad[1]):
+            return dx, None
+        near = ((x.abs() - t).abs() <= 0.5).to(g.dtype)
+        contrib = g * torch.sign(x) * near
+        if t.ndim == 0:
+            n = g.numel()
+            dt = -contrib.sum()
+        else:
+            n = g.numel() // t.numel()
+            dt = -contrib.sum(dim=tuple(range(contrib.ndim - t.ndim))).reshape(t.shape)
+        dt = dt / torch.sqrt(torch.tensor(float(n), dtype=g.dtype, device=g.device))
+        return dx, dt.to(t.dtype)
 
 
 def ste_ternary_acts(x: torch.Tensor, threshold) -> torch.Tensor:
-    """Forward value of the activation fake-quant.  Forward only."""
-    return ternary_quantize_acts(x, threshold=threshold)
+    """Activation fake-quant: ternarize with ``threshold`` (a Python float,
+    a 0-d tensor, or a per-channel ``[C]`` vector over the last axis).  A
+    float threshold, or a tensor that does not require grad, takes no
+    gradient; a trainable one takes the reference's surrogate."""
+    return _STEActs.apply(x, threshold)
 
 
 def clamp_threshold(t, lo: float = 0.05, hi: float = 2.0):
     """Keep a learned activation threshold in its meaningful band; QAT and
-    deployment folding apply the SAME clamp so the values round-trip."""
+    deployment folding apply the SAME clamp so the values round-trip.  The
+    gradient passes unchanged inside the band."""
     return torch.clamp(torch.as_tensor(t), lo, hi)
 
 

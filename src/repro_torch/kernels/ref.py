@@ -36,6 +36,23 @@ def exact_float32():
         torch.backends.cuda.matmul.allow_tf32 = prev_matmul
 
 
+@contextlib.contextmanager
+def deterministic_float32():
+    """Run the enclosed float32 work — QAT training steps, calibration,
+    eval — in true float32 and deterministically, with cuDNN kept on:
+    cuDNN picks deterministic algorithms and does not autotune, TF32 is off
+    for convolutions and matmuls.  Unlike `exact_float32` it keeps cuDNN's
+    fast convolution backward.  Restores the previous settings on exit."""
+    prev_matmul = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                        deterministic=True, allow_tf32=False):
+            yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev_matmul
+
+
 def ternary_matmul_ref(x: torch.Tensor, w_packed: torch.Tensor,
                        scale: torch.Tensor) -> torch.Tensor:
     """y = x @ unpack(w_packed, axis=0) * scale (scale broadcast over N),

@@ -29,9 +29,14 @@ arrivals, and exits non-zero on any pooled-vs-lone-session mismatch,
 non-finite logits, incomplete streams, or a bucket pool built or stepped
 into a second step program; with ``--gate`` each stream must also process
 exactly the frames `ActivityGate.plan` selects and the gate must save
-energy (CUTIE silicon-model uJ) whenever the trace has quiet frames.  The
-reference's ``--trace``, ``--trace-clock``, ``--metrics-out`` and
-``--shard`` are not defined here yet.
+energy (CUTIE silicon-model uJ) whenever the trace has quiet frames.
+
+``--trace FILE.json`` records a `repro_torch.obs` trace of either scenario
+(tick/step/feeder spans, park/wake/scale instants, one sim layer-timeline
+track per served program) as Chrome/Perfetto JSON; ``--trace-clock tick``
+stamps a deterministic event sequence instead of wall time; ``--metrics-out
+FILE.prom`` writes the serving metrics registry as a Prometheus text
+snapshot.  The reference's ``--shard`` is not defined here yet.
 
 ``--device`` defaults to ``cuda``; without a CUDA device that is an error,
 not a move to the CPU.  The default backend is "fused": conv + threshold
@@ -93,7 +98,8 @@ def serve_dvs(args) -> int:
         deployed = prog.quantize(params, calib=torch.from_numpy(frames).to(device))
 
     pool = deployed.serve(args.pool, backend=args.backend)
-    batcher = ContinuousBatcher(pool)
+    tracer = _make_tracer(args)
+    batcher = ContinuousBatcher(pool, tracer=tracer)
     for i in range(n_streams):
         batcher.submit(StreamRequest(
             stream_id=f"sensor-{i}", frames=frames[i],
@@ -106,6 +112,8 @@ def serve_dvs(args) -> int:
         torch.cuda.synchronize(device)
     wall = time.time() - t0
     stats = batcher.stats()
+    _write_obs(args, tracer, {batcher.track: deployed}, batcher.metrics,
+               tag="serve-dvs")
 
     finite = all(np.isfinite(r.logits).all() for r in results)
     acc = stats["accuracy"]
@@ -190,6 +198,7 @@ def serve_fleet_scenario(args) -> int:
     duty = args.duty_cycle if args.duty_cycle is not None else (
         0.4 if args.gate else 1.0
     )
+    tracer = _make_tracer(args)
     router = FleetRouter(
         backend=args.backend,
         max_pool_size=args.pool,
@@ -197,6 +206,7 @@ def serve_fleet_scenario(args) -> int:
         shrink_after=args.shrink_after,
         ingest=args.ingest,
         gate=gate,
+        tracer=tracer,
     )
     deps, clips = {}, {}
     for idx, name in enumerate(net_names):
@@ -321,6 +331,21 @@ def serve_fleet_scenario(args) -> int:
                     f"{name}: non-positive gated energy saving "
                     f"({e['energy_uj_saved']:.3f} uJ at duty {duty:.2f})")
 
+    # the rebuild audit and gated savings land in the metrics registry too,
+    # so a --metrics-out snapshot carries the zero-rebuild and energy story
+    # next to the occupancy/latency series
+    m_trace = router.metrics.gauge(
+        "cutie_trace_count", "Step programs built per (net, pool rung); contract: <= 1")
+    for name in net_names:
+        for sz, tc in stats["nets"][name]["pools_traced"].items():
+            m_trace.labels(net=name, pool_size=str(sz)).set(tc)
+    if energy:
+        m_saved = router.metrics.gauge(
+            "cutie_gate_energy_saved_uj", "uJ the activity gate saved")
+        for name, e in energy.items():
+            m_saved.labels(net=name).set(e["energy_uj_saved"])
+    _write_obs(args, tracer, deps, router.metrics, tag="serve-fleet")
+
     if args.out:
         report = {"scenario": {
             "nets": net_names, "streams_per_net": n_streams,
@@ -336,6 +361,35 @@ def serve_fleet_scenario(args) -> int:
     for msg in failures:
         print(f"[serve-fleet] FAIL: {msg}", file=sys.stderr)
     return 1 if failures else 0
+
+
+def _make_tracer(args):
+    """A `repro_torch.obs.Tracer` when ``--trace`` was given, else None (the
+    serving layer then runs on NULL_TRACER — zero overhead)."""
+    if not args.trace:
+        return None
+    from repro_torch.obs import Tracer
+
+    return Tracer(clock=args.trace_clock)
+
+
+def _write_obs(args, tracer, programs, metrics, tag: str) -> None:
+    """Write the ``--trace`` Perfetto JSON (serving spans + one sim
+    layer-timeline track per served program) and the ``--metrics-out``
+    Prometheus snapshot, when requested."""
+    if tracer is not None:
+        from repro_torch.obs import save_chrome
+
+        save_chrome(
+            args.trace, tracer, sim_programs=programs,
+            meta={"scenario": tag, "backend": args.backend, "device": args.device},
+        )
+        print(f"[{tag}] trace -> {args.trace} ({len(tracer)} events, "
+              f"{tracer.dropped} dropped; load in ui.perfetto.dev)")
+    if args.metrics_out:
+        with open(args.metrics_out, "w") as f:
+            f.write(metrics.render())
+        print(f"[{tag}] metrics -> {args.metrics_out}")
 
 
 def _verify_pool_vs_sessions(deployed, results, frames, backend, check: int):
@@ -419,6 +473,17 @@ def main(argv=None) -> int:
                     help="gate: consecutive quiet frames before parking")
     ap.add_argument("--out", default=None, metavar="FILE.json",
                     help="fleet: write the full stats report as JSON")
+    ap.add_argument("--trace", default=None, metavar="FILE.json",
+                    help="record a repro_torch.obs trace of the run and write it "
+                         "as Chrome/Perfetto trace JSON (tick/step/feeder spans, "
+                         "park/wake/scale instants, sim layer timelines; inspect "
+                         "with python -m repro_torch.obs)")
+    ap.add_argument("--trace-clock", default="wall", choices=["wall", "tick"],
+                    help="trace timestamps: wall ns (default) or the "
+                         "deterministic per-event sequence")
+    ap.add_argument("--metrics-out", default=None, metavar="FILE.prom",
+                    help="write the serving metrics registry as a Prometheus "
+                         "text snapshot")
     ap.add_argument("--check-streams", type=int, default=2,
                     help="dvs: streams replayed through single sessions for the "
                          "bit-exactness gate (the fleet replays every stream)")

@@ -16,8 +16,8 @@ constant memory):
     tracer.instant("wake", track="dvs_a", stream="cam-0")
     tracer.counter("occupancy", 0.75, track="dvs_a")
 
-Three event phases (Chrome trace_event vocabulary; the Chrome/Perfetto
-export is not part of the port yet):
+Three event phases (Chrome trace_event vocabulary; `repro_torch.obs.export`
+renders them for Chrome/Perfetto):
 
   * ``"X"`` — a *complete span*: emitted when the ``span()`` context
     manager exits, carrying start timestamp + duration.  Spans on one

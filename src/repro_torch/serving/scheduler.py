@@ -50,8 +50,8 @@ its wall-clock spans around work on the card measure enqueue time.
 occupancy, queue, frame and tick-latency series.
 
 Not carried over yet from the reference: the CUDA-graph capture of the
-pool step, laying a pool across several cards (``--shard``), and the
-Chrome/Perfetto export of the tracer's events.
+pool step and laying a pool across several cards (``--shard``).  The
+tracer's events render for Chrome/Perfetto through `repro_torch.obs.export`.
 """
 from __future__ import annotations
 

@@ -36,7 +36,10 @@ def test_every_port_module_imports_without_a_cuda_toolchain():
     for name in ("repro_torch.kernels.ternary_conv2d", "repro_torch.artifact.format",
                  "repro_torch.artifact.loader", "repro_torch.artifact.__main__",
                  "repro_torch.obs.tracer", "repro_torch.obs.metrics",
-                 "repro_torch.serving.fleet", "repro_torch.serving.gating"):
+                 "repro_torch.serving.fleet", "repro_torch.serving.gating",
+                 "repro_torch.train.loop", "repro_torch.optim.adamw",
+                 "repro_torch.ckpt.checkpoint", "repro_torch.launch.ft",
+                 "repro_torch.launch.train", "repro_torch.obs.export"):
         assert name in names
     for name in names:
         importlib.import_module(name)
