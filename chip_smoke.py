@@ -19,7 +19,12 @@ version.  It imports `repro_torch` only.
   * the training path — `repro_torch.train.train` (STE QAT, AdamW,
     checkpoints) at full width on ``cifar10_tnn`` and ``dvs_cnn_tcn``,
     ending in the deployed eval on ``fused`` (kernel K1), a resume on the
-    card, and the training launcher with its trace.
+    card, and the training launcher with its trace;
+  * the LM serving path — ``python -m repro_torch.launch.serve --arch
+    gemma-2b`` at full published width (plain and 2-bit packed weights),
+    full-width ``gemma-2b`` and ``mamba2-370m`` prefill and decode, and
+    the ten architectures' SMOKE configs on the card against the CPU.  It
+    reaches no TPU kernel in the reference and launches neither K1 nor K2.
 
 Phases (any failure ends the run with a non-zero exit code and no result
 line):
@@ -88,7 +93,25 @@ line):
                 deterministic cuDNN settings the trainer uses and under
                 cuDNN's autotuned ones, in turns.  Prints the ``train``
                 JSON line
-  8. result     the ``kernels`` JSON line (each kernel's time beside its
+  8. lm         ``python -m repro_torch.launch.serve --arch gemma-2b`` at the
+                reference's defaults (batch 4, prompt 32, 16 tokens), with
+                and without ``--quant ternary_packed``, exit 0 (finite
+                logits).  In-process at full width, float32 params:
+                ``gemma-2b`` (18 layers, d 2048, MQA, GeGLU 16384, vocab
+                256000, bf16 activations) prefill 4 x 32 + 16 decode steps
+                and one batch-1 4096-token prefill (the flash route);
+                ``mamba2-370m`` (48 SSD layers) one 4096-token prefill + 16
+                decode steps; each with prefill ms, decode ms per token,
+                device kernels per decode step (`torch.profiler`), peak
+                memory and the bound (params and cache bytes over HBM's
+                rate against the FLOPs at the card's peaks).  Gates: finite
+                logits; for both, in float32, decode(prefill(S-1), token S)
+                == the full forward's last logits (rtol=atol=2e-3, the
+                reference's own); the ten SMOKE configs give on the card
+                the logits and caches the CPU gives from the same params
+                (rtol=atol=1e-3); K1 and K2 launch 0 times.  Prints the
+                ``lm`` JSON line
+  9. result     the ``kernels`` JSON line (each kernel's time beside its
                 bound, plain version and library yardstick, all from this
                 run), the card line, and the last line
                 ``{"ok": true, "device": {...}}``
@@ -159,6 +182,20 @@ TRAIN_TEMPORAL = ("dvs_cnn_tcn", 9, 96, (64, 64), 2, 5, 4)
 TRAIN_TEMPORAL_RECIPE = {"steps": 10, "batch": 8, "lr": 5e-3}
 TRAIN_EVAL_BATCHES = 4
 DETERMINISM_STEPS = 20   # QAT steps timed per cuDNN setting, in turns
+
+# the LM serving path: the served config and the SSM config at full published
+# width; the 4096-token prefill takes the flash route at its threshold;
+# (batch, S) of the full-width prefill -> decode consistency check (mamba's S
+# crosses a 256-step SSD chunk); the SMOKE runs' shapes, as the CPU tests'
+LM_SERVED = "gemma-2b"
+LM_SSM = "mamba2-370m"
+LM_LONG = 4096
+LM_DECODES = 16            # decode steps timed after a warm-up
+LM_CONSISTENCY = {"gemma-2b": (2, 48), "mamba2-370m": (2, 300)}
+LM_CONSISTENCY_TOL = 2e-3  # the reference's own (tests/test_arch_smoke.py)
+LM_SMOKE_SHAPE = (2, 13, 3)  # batch, prompt, decode steps
+LM_SMOKE_TOL = 1e-3        # whole-model float32 logits, as tests/test_torch_lm_model.py
+PEAK_F32_FLOPS = 67e12     # float32 outside the tensor cores (the SSD scan's einsums)
 
 # (name, H, W, C_in, C_out, K, pool, input dtype) — the nine launches of one
 # pool tick of dvs_cnn_tcn (5 conv + 4 TCN layers; TCN maps carry the extra
@@ -1091,6 +1128,309 @@ def train_path(dev):
     return out, k1_spatial
 
 
+def _tree_bytes(tree) -> int:
+    from repro_torch.tree import tree_leaves
+
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+
+def _lm_flops(cfg, batch: int, seq: int, kv_len: int):
+    """(tensor-core bf16 operations, float32 CUDA-core operations) of a
+    prefill of ``seq`` tokens (or a decode step, seq=1) against ``kv_len``
+    cached positions: the projections, the attention scores and values
+    over the causal positions, the SSD scan, and the logits of the last
+    position.  A multiply-add is two."""
+    from repro_torch.models.model import build_segments
+
+    d, tok = cfg.d_model, batch * seq
+    mm, f32 = 0, 0
+    for seg in build_segments(cfg):
+        for mixer, ffn in zip(seg.mixers, seg.ffns):
+            if mixer == "mamba":
+                di, n, nh = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
+                mm += 2 * tok * (d * (2 * di + 2 * n + nh) + di * d) * seg.n_steps
+                l = min(cfg.ssm_chunk, seq)
+                # intra-chunk (C B^T, its decay-weighted product with x), the
+                # inter-chunk read of the state and the state update
+                f32 += 2 * tok * (l * n + l * di + 2 * di * n) * seg.n_steps
+                continue
+            h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+            mm += 2 * tok * (d * h * hd + 2 * d * kvh * hd + h * hd * d) * seg.n_steps
+            pairs = batch * (seq * (seq + 1) // 2 if seq > 1 else kv_len)
+            mm += 2 * 2 * pairs * h * hd * seg.n_steps
+            if ffn == "dense":
+                mm += 2 * tok * (3 if cfg.mlp_type in ("swiglu", "geglu") else 2) \
+                    * d * cfg.d_ff * seg.n_steps
+    mm += 2 * batch * d * cfg.vocab_size
+    return mm, f32
+
+
+def _lm_bound(cfg, params, cache_in_bytes: int, cache_out_bytes: int, batch: int, seq: int,
+              kv_len: int):
+    """The least time of a prefill / decode step: every param read once,
+    the cache read and written once, against the FLOPs at the card's peaks
+    (bf16 tensor cores; the float32 SSD scan at the CUDA cores' rate)."""
+    bytes_ = _tree_bytes(params) + cache_in_bytes + cache_out_bytes
+    mm, f32 = _lm_flops(cfg, batch, seq, kv_len)
+    bytes_ms = bytes_ / PEAK_BYTES_PER_S * 1e3
+    ops_ms = (mm / PEAK_OPS_PER_S[torch.bfloat16] + f32 / PEAK_F32_FLOPS) * 1e3
+    return {"bytes": bytes_, "bytes_ms": bytes_ms, "flops": mm + f32, "ops_ms": ops_ms,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+def _profile_kernels(fn):
+    """(device kernels incl. copies, their device ms, the top five kernels
+    by device ms) of one call of ``fn``, from `torch.profiler`; Nones when
+    it reports no device events."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    n, by_name = 0, {}
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            n += 1
+            us = ev.device_time if hasattr(ev, "device_time") else ev.cuda_time
+            by_name[ev.name] = by_name.get(ev.name, 0.0) + us / 1e3
+    if not n:
+        return None, None, None
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    return n, sum(by_name.values()), [[name[:80], ms] for name, ms in top]
+
+
+def _lm_serve_run(cfg, params, dev, batch: int, prompt: int, gen):
+    """Prefill ``batch x prompt`` random tokens, then LM_DECODES greedy
+    decode steps, after a warm-up of the same; host clock around work that
+    ends in a synchronise.  Fails on non-finite logits."""
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+
+    prefill = make_prefill_step(cfg, prompt + LM_DECODES + 1, cache_dtype=torch.float32)
+    decode = make_decode_step(cfg)
+    tokens = torch.randint(0, cfg.vocab_size, (batch, prompt), generator=gen, device=dev)
+    first = None
+    for rep in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = prefill(params, {"tokens": tokens})
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        first = prefill_ms if first is None else first
+        cache_in = _tree_bytes(cache)
+        finite = torch.isfinite(logits).all()
+        tok = torch.argmax(logits, dim=-1)[:, None]
+        t0 = time.perf_counter()
+        for _ in range(LM_DECODES):
+            logits, cache = decode(params, tok, cache)
+            finite &= torch.isfinite(logits).all()
+            tok = torch.argmax(logits, dim=-1)[:, None]
+        torch.cuda.synchronize()
+        decode_ms = (time.perf_counter() - t0) * 1e3 / LM_DECODES
+        if not bool(finite):
+            fail(f"lm {cfg.name}: non-finite logits (batch {batch}, prompt {prompt})")
+    kernels, device_ms, top = _profile_kernels(lambda: decode(params, tok, cache))
+    pf_kernels, pf_device_ms, _ = _profile_kernels(lambda: prefill(params, {"tokens": tokens}))
+    kv = prompt + LM_DECODES
+    return {
+        "batch": batch, "prompt": prompt, "decode_steps": LM_DECODES,
+        "prefill_ms_first_call": first, "prefill_ms": prefill_ms,
+        "device_kernels_per_prefill": pf_kernels, "device_ms_per_prefill": pf_device_ms,
+        "decode_ms_per_token": decode_ms,
+        "device_kernels_per_decode_step": kernels, "device_ms_per_decode_step": device_ms,
+        "top_kernels_ms_per_decode_step": top,
+        "prefill_bound": _lm_bound(cfg, params, 0, cache_in, batch, prompt, prompt),
+        "decode_bound": _lm_bound(cfg, params, cache_in, cache_in, batch, 1, kv),
+    }
+
+
+def _lm_long_prefill(cfg, params, dev, gen):
+    """One batch-1 prefill of LM_LONG tokens (timed on its second call)."""
+    from repro_torch.launch.steps import make_prefill_step
+
+    prefill = make_prefill_step(cfg, LM_LONG, cache_dtype=torch.float32)
+    tokens = torch.randint(0, cfg.vocab_size, (1, LM_LONG), generator=gen, device=dev)
+    times = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = prefill(params, {"tokens": tokens})
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    if not bool(torch.isfinite(logits).all()):
+        fail(f"lm {cfg.name}: non-finite logits after a {LM_LONG}-token prefill")
+    if int(cache["len"]) != LM_LONG:
+        fail(f"lm {cfg.name}: cache len {int(cache['len'])} after a {LM_LONG}-token prefill")
+    kernels, device_ms, top = _profile_kernels(lambda: prefill(params, {"tokens": tokens}))
+    return {"tokens": LM_LONG, "prefill_ms_first_call": times[0], "prefill_ms": times[1],
+            "device_kernels": kernels, "device_ms": device_ms, "top_kernels_ms": top,
+            "bound": _lm_bound(cfg, params, 0, _tree_bytes(cache), 1, LM_LONG, LM_LONG)}
+
+
+def _lm_consistency(cfg, params, dev, gen):
+    """decode(prefill(S-1), token S) == the full forward's last logits, in
+    float32 at full width; returns the largest difference."""
+    import dataclasses
+
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models.model import forward
+
+    batch, seq = LM_CONSISTENCY[cfg.name]
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    tokens = torch.randint(0, cfg.vocab_size, (batch, seq), generator=gen, device=dev)
+    with torch.no_grad():
+        want = forward(params, cfg32, tokens, mode="train", logits_mode="last").logits[:, -1]
+    _, cache = make_prefill_step(cfg32, seq + 1, cache_dtype=torch.float32)(
+        params, {"tokens": tokens[:, : seq - 1]})
+    got, cache = make_decode_step(cfg32)(params, tokens[:, seq - 1:], cache)
+    err = float((got - want).abs().max())
+    if not torch.allclose(got, want, rtol=LM_CONSISTENCY_TOL, atol=LM_CONSISTENCY_TOL):
+        fail(f"lm {cfg.name}: decode(prefill(S-1), token S) != forward's last logits at full "
+             f"width, float32: max|diff|={err:.3e} (rtol=atol={LM_CONSISTENCY_TOL})")
+    return {"batch": batch, "seq": seq, "max_abs_err": err, "tol": LM_CONSISTENCY_TOL}
+
+
+def _lm_smoke_card_vs_cpu(arch, dev):
+    """One SMOKE config: the same params and tokens on the card and on the
+    CPU, train-mode logits, prefill and decode steps within LM_SMOKE_TOL."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models.model import forward, init_params
+    from repro_torch.tree import tree_leaves, tree_map
+
+    cfg = get_config(arch, smoke=True)
+    gen = torch.Generator().manual_seed(SEED)
+    p_cpu = init_params(cfg, gen, device="cpu")
+    p_gpu = tree_map(lambda a: a.to(dev), p_cpu)
+    b, s, n_dec = LM_SMOKE_SHAPE
+    toks = torch.randint(0, cfg.vocab_size, (b, s + n_dec), generator=gen)
+    extras = {}
+    if cfg.frontend == "vision":
+        extras["frontend_embeds"] = torch.randn((b, cfg.frontend_seq, cfg.d_model),
+                                                generator=gen)
+    if cfg.is_encdec:
+        extras["enc_embeds"] = torch.randn((b, cfg.enc_seq_len, cfg.d_model), generator=gen)
+
+    def run(params, device):
+        kw = {k: v.to(device) for k, v in extras.items()}
+        t = toks.to(device)
+        outs = []
+        with torch.no_grad():
+            outs.append(forward(params, cfg, t[:, :s], mode="train", **kw).logits)
+        logits, cache = make_prefill_step(cfg, s + n_dec, cache_dtype=torch.float32)(
+            params, {"tokens": t[:, :s], **kw})
+        outs += [logits, *tree_leaves(cache)]
+        decode = make_decode_step(cfg)
+        for i in range(n_dec):
+            logits, cache = decode(params, t[:, s + i:s + i + 1], cache)
+            outs += [logits, *tree_leaves(cache)]
+        return [o.cpu() for o in outs]
+
+    err = 0.0
+    for a, c in zip(run(p_gpu, dev), run(p_cpu, torch.device("cpu"))):
+        if a.dtype == torch.int32:
+            if not torch.equal(a, c):
+                fail(f"lm {arch} smoke: cache len on the card {a} != on the CPU {c}")
+            continue
+        if not bool(torch.isfinite(a).all()):
+            fail(f"lm {arch} smoke: non-finite values on the card")
+        if not torch.allclose(a, c, rtol=LM_SMOKE_TOL, atol=LM_SMOKE_TOL):
+            fail(f"lm {arch} smoke: card != CPU, max|diff|={(a - c).abs().max().item():.3e}")
+        err = max(err, float((a - c).abs().max()))
+    return err
+
+
+def lm_path(dev):
+    """Phase 8: LM serving.  ``serve --arch gemma-2b`` at the reference's
+    defaults, with and without ``--quant ternary_packed``; full-width
+    ``gemma-2b`` and ``mamba2-370m`` measured in-process (prefill, decode,
+    a 4096-token prefill, float32 consistency); the ten SMOKE configs on the
+    card against the CPU.  The path has no kernel of its own: K1 and K2
+    must launch 0 times."""
+    import re
+
+    from repro_torch.configs import ARCH_IDS, get_config
+    from repro_torch.kernels.ternary_conv2d import ternary_conv2d_cuda
+    from repro_torch.kernels.ternary_matmul import ternary_matmul_cuda
+    from repro_torch.models.model import init_params
+
+    t_phase = time.perf_counter()
+    ternary_conv2d_cuda.launches = 0
+    ternary_matmul_cuda.launches = 0
+    out = {"launcher": {}, "full_width": {}, "smoke_card_vs_cpu_max_abs_err": {}}
+
+    # the launcher as a user runs it
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        [str(REPO / "src")] + [p for p in [os.environ.get("PYTHONPATH")] if p])}
+    for quant in ("none", "ternary_packed"):
+        argv = ["-m", "repro_torch.launch.serve", "--arch", LM_SERVED, "--quant", quant]
+        t0 = time.perf_counter()
+        res = subprocess.run([sys.executable, *argv], cwd=REPO, env=env,
+                             capture_output=True, text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        if res.returncode != 0:
+            fail(f"python {' '.join(argv)} exited {res.returncode}:\n"
+                 f"{res.stdout[-2000:]}\n{res.stderr[-2000:]}")
+        line = next((ln for ln in res.stdout.splitlines() if "decode steps" in ln), "")
+        m = re.search(r"prefill\((\d+)x(\d+)\) (\d+) ms; (\d+) decode steps (\d+) ms "
+                      r"\(([\d.]+) ms/tok\)", line)
+        if not m:
+            fail(f"python {' '.join(argv)}: no [serve] line in\n{res.stdout[-2000:]}")
+        out["launcher"][quant] = {
+            "argv": " ".join(argv[2:]), "exit": 0, "wall_s": wall,
+            "prefill_ms": int(m[3]), "decode_ms_per_token": float(m[6]),
+            "batch": int(m[1]), "prompt": int(m[2]), "decode_steps": int(m[4]),
+        }
+        print(f"[chip_smoke] lm: python {' '.join(argv)} exit 0: {line}", flush=True)
+
+    # full width, in-process
+    for arch in (LM_SERVED, LM_SSM):
+        cfg = get_config(arch)
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        params = init_params(cfg, gen, dtype=torch.float32, device=dev)
+        rep = {"n_params": cfg.n_params(), "param_bytes": _tree_bytes(params),
+               "dtype": cfg.dtype}
+        if arch == LM_SERVED:   # the launcher's defaults, then the long prefill
+            rep["serve"] = _lm_serve_run(cfg, params, dev, 4, 32, gen)
+            rep["long_prefill"] = _lm_long_prefill(cfg, params, dev, gen)
+        else:                   # a 4096-token prefill, then decode
+            rep["serve"] = _lm_serve_run(cfg, params, dev, 1, LM_LONG, gen)
+        rep["consistency_float32"] = _lm_consistency(cfg, params, dev, gen)
+        rep["peak_memory_bytes"] = torch.cuda.max_memory_allocated(dev)
+        out["full_width"][arch] = rep
+        sv, lp = rep["serve"], rep.get("long_prefill")
+        long = (f"; {LM_LONG}-token prefill {lp['prefill_ms']:.2f} ms (bound "
+                f"{lp['bound']['bound_ms']:.3f} ms, {lp['bound']['bound_by']})" if lp else "")
+        print(f"[chip_smoke] lm: {arch} ({rep['n_params'] / 1e9:.2f} B params): prefill "
+              f"{sv['batch']}x{sv['prompt']} {sv['prefill_ms']:.2f} ms (bound "
+              f"{sv['prefill_bound']['bound_ms']:.3f} ms, {sv['prefill_bound']['bound_by']}), "
+              f"decode {sv['decode_ms_per_token']:.3f} ms/token over "
+              f"{sv['device_kernels_per_decode_step']} device kernels a step (bound "
+              f"{sv['decode_bound']['bound_ms']:.3f} ms, {sv['decode_bound']['bound_by']})"
+              f"{long}; float32 prefill->decode max|diff| "
+              f"{rep['consistency_float32']['max_abs_err']:.2e}; peak "
+              f"{rep['peak_memory_bytes'] / 2**30:.2f} GiB", flush=True)
+        del params
+        torch.cuda.empty_cache()
+
+    for arch in ARCH_IDS:
+        out["smoke_card_vs_cpu_max_abs_err"][arch] = _lm_smoke_card_vs_cpu(arch, dev)
+    print(f"[chip_smoke] lm: the ten SMOKE configs on the card == the CPU within "
+          f"{LM_SMOKE_TOL} (max|diff| "
+          f"{max(out['smoke_card_vs_cpu_max_abs_err'].values()):.2e})", flush=True)
+
+    launches = {"ternary_conv2d": ternary_conv2d_cuda.launches,
+                "ternary_matmul": ternary_matmul_cuda.launches}
+    if any(launches.values()):
+        fail(f"lm: the LM path launched the CUTIE kernels: {launches}")
+    out["kernel_launches"] = launches
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
 def main() -> int:
     # phase 1: device
     if not torch.cuda.is_available():
@@ -1132,7 +1472,10 @@ def main() -> int:
     # phase 7: the training path
     train_report, k1_train = train_path(dev)
 
-    # phase 8: results
+    # phase 8: the LM serving path
+    lm_report = lm_path(dev)
+
+    # phase 9: results
     mm = mm_rows[0]  # the quickstart's launch: 64x2048x512 float32
     kernels = {"kernels": [{
         "name": "ternary_conv2d", "route": "cuda", "source": K1_SOURCE,
@@ -1162,6 +1505,7 @@ def main() -> int:
     print(json.dumps({"serving": serving}), flush=True)
     print(json.dumps({"fleet": fleet}), flush=True)
     print(json.dumps({"train": train_report}), flush=True)
+    print(json.dumps({"lm": lm_report}), flush=True)
     print(json.dumps(kernels), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

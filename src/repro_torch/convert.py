@@ -1,4 +1,5 @@
-"""Carry weights and deploy tables across from the reference package.
+"""Carry weights, deploy tables and LM params/caches across from the
+reference package.
 
 The reference's arrays are handed over **as numpy** by the caller (a parity
 test does the ``np.asarray``); this module never imports the reference or
@@ -103,3 +104,33 @@ def train_state_from_reference(state_numpy: Dict, device="cuda") -> Dict:
             v=params_from_reference(v, device=dev),
         ),
     }
+
+
+def _array_tensor(a, device) -> torch.Tensor:
+    """A numpy array as a tensor of the same dtype on ``device``; numpy's
+    ``bfloat16`` (the ml_dtypes type the reference's arrays convert to)
+    becomes ``torch.bfloat16`` bit for bit."""
+    a = np.array(a, order="C")
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16).to(device)
+    return torch.from_numpy(a).to(device)
+
+
+def _lm_tree(tree, device):
+    if isinstance(tree, dict):
+        return {k: _lm_tree(v, device) for k, v in tree.items()}
+    return _array_tensor(tree, device)
+
+
+def lm_params_from_reference(params_numpy: Dict, device="cuda") -> Dict:
+    """The reference's LM params (`repro.models.init_params`'s tree, leaves
+    handed over as numpy) as tensors on ``device``, path for path and with
+    every dtype kept: float32 / bf16 weights, uint8 packed ternary leaves."""
+    return _lm_tree(params_numpy, resolve_device(device))
+
+
+def lm_cache_from_reference(cache_numpy: Dict, device="cuda") -> Dict:
+    """The reference's LM cache (`repro.models.init_cache` / a prefill's
+    cache, leaves as numpy) as tensors on ``device``, dtypes kept: the KV /
+    SSM state leaves, ``len`` a 0-d int32, ``enc_out`` for enc-dec."""
+    return _lm_tree(cache_numpy, resolve_device(device))

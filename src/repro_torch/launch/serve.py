@@ -1,6 +1,15 @@
-"""Serving launcher of the port: CUTIE multi-sensor streaming (``--dvs``)
-and multi-tenant fleet serving (``--fleet``).  Counterpart of the CUTIE
-paths of `repro.launch.serve` (its LM path is not ported).
+"""Serving launcher of the port: LM serving (``--arch``, the default path),
+CUTIE multi-sensor streaming (``--dvs``) and multi-tenant fleet serving
+(``--fleet``).  Counterpart of `repro.launch.serve`.
+
+LM serving (`serve_lm`): prefill a batch of random prompts, then decode
+greedily with the KV/SSM cache, and print the reference's two ``[serve]``
+lines (prefill and decode times, the card synchronised before each clock
+read; the sampled tokens).  Exits non-zero on non-finite logits.
+
+    python -m repro_torch.launch.serve --arch gemma-2b                    # full width, on the card
+    python -m repro_torch.launch.serve --arch gemma-2b --quant ternary_packed
+    python -m repro_torch.launch.serve --arch mamba2-370m --smoke --device cpu
 
 The paper's autonomous mode scaled out — an arrival/departure simulation of
 many DVS sensor streams continuously batched onto one
@@ -54,7 +63,62 @@ import time
 import numpy as np
 import torch
 
+from repro_torch.configs import ARCH_IDS
 from repro_torch.device import resolve_device
+
+
+def serve_lm(args) -> int:
+    """Batched prefill + greedy decode of ``--arch`` with random weights
+    (seed ``--seed``).  Returns 0, or 1 when any logits are not finite."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models.model import init_params
+
+    device = resolve_device(args.device)
+    cfg = get_config(args.arch, quant=args.quant, smoke=args.smoke)
+    gen = torch.Generator(device=device).manual_seed(args.seed)
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    params = init_params(cfg, gen, dtype=torch.float32, device=device)
+    prefill = make_prefill_step(cfg, args.prompt_len + args.tokens, cache_dtype=torch.float32)
+    decode = make_decode_step(cfg)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
+                                     generator=gen, device=device)}
+    if cfg.frontend == "vision":
+        batch["frontend_embeds"] = torch.randn(
+            (args.batch, cfg.frontend_seq, cfg.d_model), generator=gen, device=device)
+    if cfg.is_encdec:
+        batch["enc_embeds"] = torch.randn(
+            (args.batch, cfg.enc_seq_len, cfg.d_model), generator=gen, device=device)
+
+    sync()
+    t0 = time.perf_counter()
+    logits, cache = prefill(params, batch)
+    sync()
+    t_pf = time.perf_counter() - t0
+    finite = torch.isfinite(logits).all()
+    tok = torch.argmax(logits, dim=-1)[:, None]
+    out_tokens = [tok]
+    t0 = time.perf_counter()
+    for _ in range(args.tokens - 1):
+        logits, cache = decode(params, tok, cache)
+        finite = finite & torch.isfinite(logits).all()
+        tok = torch.argmax(logits, dim=-1)[:, None]
+        out_tokens.append(tok)
+    sync()
+    t_dec = time.perf_counter() - t0
+    seqs = torch.cat(out_tokens, dim=1).cpu().numpy()
+    print(f"[serve] {cfg.name}: prefill({args.batch}x{args.prompt_len}) {t_pf*1e3:.0f} ms; "
+          f"{args.tokens-1} decode steps {t_dec*1e3:.0f} ms "
+          f"({t_dec/max(args.tokens-1,1)*1e3:.1f} ms/tok)")
+    print(f"[serve] sample tokens: {seqs[0, :8]}")
+    if not bool(finite):
+        print("[serve] FAIL: non-finite logits", file=sys.stderr)
+        return 1
+    return 0
 
 
 def serve_dvs(args) -> int:
@@ -422,8 +486,19 @@ def main(argv=None) -> int:
     from repro_torch.api import BACKENDS
 
     ap = argparse.ArgumentParser(
-        description="repro_torch serving launcher (DVS multi-sensor pool, "
-                    "multi-net fleet)")
+        description="repro_torch serving launcher (LM prefill + decode, DVS "
+                    "multi-sensor pool, multi-net fleet)")
+    ap.add_argument("--arch", choices=ARCH_IDS, default="gemma-2b",
+                    help="LM: architecture to serve (the default path)")
+    ap.add_argument("--smoke", action="store_true",
+                    help="LM: the architecture's reduced SMOKE config")
+    ap.add_argument("--quant", default="none",
+                    choices=["none", "ternary", "ternary_packed"],
+                    help="LM: weight quantization (ternary_packed: 2-bit weights)")
+    ap.add_argument("--batch", type=int, default=4, help="LM: prompts per batch")
+    ap.add_argument("--prompt-len", type=int, default=32, help="LM: prompt tokens")
+    ap.add_argument("--tokens", type=int, default=16,
+                    help="LM: tokens generated per prompt (prefill's + decode steps)")
     ap.add_argument("--dvs", action="store_true",
                     help="serve DVS sensor streams through a SessionPool")
     ap.add_argument("--backend", default="fused", choices=list(BACKENDS))
@@ -496,7 +571,7 @@ def main(argv=None) -> int:
         return serve_fleet_scenario(args)
     if args.dvs:
         return serve_dvs(args)
-    ap.error("the port serves --dvs or --fleet (the LM path is not ported)")
+    return serve_lm(args)
 
 
 if __name__ == "__main__":

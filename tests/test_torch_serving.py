@@ -472,7 +472,7 @@ def test_launch_serve_edge_cases(capsys):
     assert launch_serve.main(["--dvs", "--frames", "0", "--device", "cpu"]) == 0
     assert "stays idle" in capsys.readouterr().out
     with pytest.raises(SystemExit):
-        launch_serve.main(["--device", "cpu"])          # no --dvs
+        launch_serve.main(["--arch", "no-such-arch", "--device", "cpu"])  # not an LM
     with pytest.raises(SystemExit):
         launch_serve.main(["--dvs", "--backend", "pallas", "--device", "cpu"])
 
