@@ -24,7 +24,13 @@ version.  It imports `repro_torch` only.
     gemma-2b`` at full published width (plain and 2-bit packed weights),
     full-width ``gemma-2b`` and ``mamba2-370m`` prefill and decode, and
     the ten architectures' SMOKE configs on the card against the CPU.  It
-    reaches no TPU kernel in the reference and launches neither K1 nor K2.
+    reaches no TPU kernel in the reference and launches neither K1 nor K2;
+  * the LM training path — `make_train_step(..., donate=True)` on
+    full-width ``gemma-2b`` under the ternary STE at 1 x 4096 tokens (the
+    flash backward, the chunked CE, the layer remat, AdamW in place), the
+    SMOKE configs' train steps on the card against the CPU, and ``python -m
+    repro_torch.launch.train_lm`` with a resume.  It launches neither K1
+    nor K2 either.
 
 Phases (any failure ends the run with a non-zero exit code and no result
 line):
@@ -111,7 +117,26 @@ line):
                 the logits and caches the CPU gives from the same params
                 (rtol=atol=1e-3); K1 and K2 launch 0 times.  Prints the
                 ``lm`` JSON line
-  9. result     the ``kernels`` JSON line (each kernel's time beside its
+  9. lm_train   three donating train steps of full-width ``gemma-2b``
+                ``quant="ternary"`` (bf16 activations, float32 params and
+                AdamW state, 30.07 GB) on batch 1 x 4096 tokens of
+                `LMTokenPipeline`: host ms per step, the last step's device
+                ms and kernels (`torch.profiler`), busy share, peak memory,
+                the bound (the state read and written once against four
+                forward passes' operations at bf16 peak).  Gates: finite
+                losses and grad norms, every param leaf moved.  One float32
+                step of each of the ten SMOKE configs, and of ``gemma-2b``
+                with ``accum_steps=2`` and with ``compress_grads``, on the
+                card == on the CPU from the same state (loss, aux, lr
+                within 1e-5, grad norm 1e-4, the first moment rtol 1e-3,
+                atol 1e-5, as the CPU tests).  ``python -m
+                repro_torch.launch.train_lm --arch mamba2-370m`` at full
+                width for 20 steps (checkpoints every 10 under
+                ``build/lm_train_ckpt``, free disk checked first, removed
+                after) and again to 30 steps: exit 0, the ``[train]`` lines,
+                "resumed from step 20".  K1 and K2 launch 0 times.  Prints
+                the ``lm_train`` JSON line
+  10. result    the ``kernels`` JSON line (each kernel's time beside its
                 bound, plain version and library yardstick, all from this
                 run), the card line, and the last line
                 ``{"ok": true, "device": {...}}``
@@ -196,6 +221,22 @@ LM_CONSISTENCY_TOL = 2e-3  # the reference's own (tests/test_arch_smoke.py)
 LM_SMOKE_SHAPE = (2, 13, 3)  # batch, prompt, decode steps
 LM_SMOKE_TOL = 1e-3        # whole-model float32 logits, as tests/test_torch_lm_model.py
 PEAK_F32_FLOPS = 67e12     # float32 outside the tensor cores (the SSD scan's einsums)
+
+# the LM training path: the served config at full published width under the
+# paper's ternary STE, batch 1 x 4096 tokens (the causal flash route, so its
+# backward runs), three donating steps; one float32 step of each SMOKE config
+# on the card and on the CPU, as the CPU tests compare them (loss, aux and
+# grad norm within 1e-5 / 1e-4, the first moment m = 0.1 * clipped grads
+# within rtol 1e-3, atol 1e-5); the launcher at full width on the SSM config:
+# (arch, steps, resumed steps, checkpoint every)
+LM_TRAIN_ARCH = "gemma-2b"
+LM_TRAIN_SEQ = 4096
+LM_TRAIN_STEPS = 3
+LM_TRAIN_OPT = {"lr": 1e-4, "warmup_steps": 2, "total_steps": 10}
+LM_TRAIN_SMOKE_SHAPE = (4, 16)   # batch, seq
+LM_TRAIN_SMOKE_OPT = {"lr": 1e-3, "warmup_steps": 2, "total_steps": 10}
+LM_TRAIN_SMOKE_TOL = {"metrics": 1e-5, "grad_norm": 1e-4, "m_rtol": 1e-3, "m_atol": 1e-5}
+LM_TRAIN_LAUNCH = ("mamba2-370m", 20, 30, 10)
 
 # (name, H, W, C_in, C_out, K, pool, input dtype) — the nine launches of one
 # pool tick of dvs_cnn_tcn (5 conv + 4 TCN layers; TCN maps carry the extra
@@ -1179,8 +1220,8 @@ def _lm_bound(cfg, params, cache_in_bytes: int, cache_out_bytes: int, batch: int
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
 
 
-def _profile_kernels(fn):
-    """(device kernels incl. copies, their device ms, the top five kernels
+def _profile_kernels(fn, top: int = 5):
+    """(device kernels incl. copies, their device ms, the ``top`` kernels
     by device ms) of one call of ``fn``, from `torch.profiler`; Nones when
     it reports no device events."""
     from torch.profiler import ProfilerActivity, profile
@@ -1197,8 +1238,8 @@ def _profile_kernels(fn):
             by_name[ev.name] = by_name.get(ev.name, 0.0) + us / 1e3
     if not n:
         return None, None, None
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
-    return n, sum(by_name.values()), [[name[:80], ms] for name, ms in top]
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
+    return n, sum(by_name.values()), [[name[:120], ms] for name, ms in ranked]
 
 
 def _lm_serve_run(cfg, params, dev, batch: int, prompt: int, gen):
@@ -1431,6 +1472,218 @@ def lm_path(dev):
     return out
 
 
+def _lm_train_bound(cfg, state, batch: int, seq: int):
+    """The least time of a train step: the state (params, m, v) read once
+    and written once, against the operations at the bf16 tensor cores' peak
+    of four forward passes over every position's logits — the forward, the
+    layer remat's second forward and a backward of twice the forward (the
+    flash backward's extra products are left out: a lower bound)."""
+    mm, f32 = _lm_flops(cfg, batch, seq, seq)
+    mm += 2 * batch * (seq - 1) * cfg.d_model * cfg.vocab_size   # every position's logits
+    mm, f32 = 4 * mm, 4 * f32
+    bytes_ = 2 * _tree_bytes((state.params, state.opt))
+    bytes_ms = bytes_ / PEAK_BYTES_PER_S * 1e3
+    ops_ms = (mm / PEAK_OPS_PER_S[torch.bfloat16] + f32 / PEAK_F32_FLOPS) * 1e3
+    return {"bytes": bytes_, "bytes_ms": bytes_ms, "flops": mm + f32, "ops_ms": ops_ms,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+def _lm_train_full_width(dev):
+    """LM_TRAIN_STEPS donating steps of full-width ``gemma-2b`` under
+    ``quant="ternary"`` on batch 1 x LM_TRAIN_SEQ tokens of `LMTokenPipeline`:
+    host ms per step, the last step's device ms and kernels
+    (`torch.profiler`), busy share, peak memory, the bound.  Gates: finite
+    losses, a finite grad norm (so every grad is finite), every param leaf
+    moved."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import LMTokenPipeline
+    from repro_torch.launch.steps import make_train_state, make_train_step
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.tree import tree_leaves
+
+    cfg = get_config(LM_TRAIN_ARCH, quant="ternary")
+    torch.zeros((), device=dev)
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    state = make_train_state(cfg, torch.Generator(device=dev).manual_seed(SEED), device=dev)
+    bound = _lm_train_bound(cfg, state, 1, LM_TRAIN_SEQ)
+    state_bytes = _tree_bytes(state)
+    before = [leaf.reshape(-1)[:4096].clone() for leaf in tree_leaves(state.params)]
+    pipe = LMTokenPipeline(cfg.vocab_size, LM_TRAIN_SEQ, 1, seed=SEED)
+    step = make_train_step(cfg, AdamWConfig(**LM_TRAIN_OPT), donate=True)
+    host_ms, losses, grad_norms, profiled = [], [], [], None
+    out = {}
+    for i in range(LM_TRAIN_STEPS):
+        batch = pipe.next_batch()
+        if i == LM_TRAIN_STEPS - 1:   # the last step under the profiler
+            def run(batch=batch):
+                out["step"] = step(state, batch)
+            profiled = _profile_kernels(run, top=15)
+            state, metrics = out.pop("step")
+        else:
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch)
+            torch.cuda.synchronize(dev)
+            host_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(metrics["loss"]))
+        grad_norms.append(float(metrics["grad_norm"]))
+    if not all(np.isfinite(losses)):
+        fail(f"lm_train {cfg.name}: non-finite loss {losses}")
+    if not all(np.isfinite(grad_norms)):
+        fail(f"lm_train {cfg.name}: non-finite gradient (grad norms {grad_norms})")
+    still = [i for i, (a, b) in enumerate(zip(before, tree_leaves(state.params)))
+             if torch.equal(a, b.reshape(-1)[:4096])]
+    if still:
+        fail(f"lm_train {cfg.name}: param leaves {still} did not move in {LM_TRAIN_STEPS} steps")
+    kernels, device_ms, top = profiled
+    peak = torch.cuda.max_memory_allocated(dev)
+    del state, before, out
+    torch.cuda.empty_cache()
+    return {
+        "arch": cfg.name, "quant": cfg.quant, "dtype": cfg.dtype, "n_params": cfg.n_params(),
+        "batch": 1, "seq": LM_TRAIN_SEQ, "steps": LM_TRAIN_STEPS, "donate": True,
+        "state_bytes": state_bytes, "losses": losses, "grad_norms": grad_norms,
+        "host_ms_per_step": host_ms, "device_kernels_per_step": kernels,
+        "device_ms_per_step": device_ms, "top_kernels_ms": top,
+        "busy_share": device_ms / host_ms[-1] if device_ms else None,
+        "peak_memory_bytes": peak, "bound": bound,
+    }
+
+
+def _lm_train_smoke_card_vs_cpu(arch, dev, accum=1, compress=False):
+    """One float32 train step of a SMOKE config from the same state and batch
+    on the card and on the CPU; returns the largest differences."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import LMTokenPipeline
+    from repro_torch.launch.steps import make_train_state, make_train_step
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.tree import tree_leaves, tree_map
+
+    cfg = get_config(arch, smoke=True)
+    state_cpu = make_train_state(cfg, torch.Generator().manual_seed(SEED), compress=compress,
+                                 device="cpu")
+    state_gpu = tree_map(lambda a: a.to(dev), state_cpu)
+    b, s = LM_TRAIN_SMOKE_SHAPE
+    batch = LMTokenPipeline(
+        cfg.vocab_size, s, b, seed=SEED,
+        frontend_seq=cfg.frontend_seq if cfg.frontend == "vision" else 0, d_model=cfg.d_model,
+        enc_seq=cfg.enc_seq_len if cfg.is_encdec else 0).next_batch()
+    step = make_train_step(cfg, AdamWConfig(**LM_TRAIN_SMOKE_OPT), compress_grads=compress,
+                           accum_steps=accum)
+    new_gpu, m_gpu = step(state_gpu, batch)
+    new_cpu, m_cpu = step(state_cpu, batch)
+    tol = LM_TRAIN_SMOKE_TOL
+    err = {"metrics": 0.0, "m": 0.0}
+    for k in m_cpu:
+        a, c = float(m_gpu[k]), float(m_cpu[k])
+        t = tol["grad_norm"] if k == "grad_norm" else tol["metrics"]
+        if not (np.isfinite(a) and abs(a - c) <= t + t * abs(c)):
+            fail(f"lm_train {arch} smoke (accum {accum}, compress {compress}): {k} on the card "
+                 f"{a} != on the CPU {c}")
+        err["metrics"] = max(err["metrics"], abs(a - c))
+    for a, c in zip(tree_leaves(new_gpu.opt.m), tree_leaves(new_cpu.opt.m)):
+        a = a.cpu()
+        if not bool(torch.isfinite(a).all()):
+            fail(f"lm_train {arch} smoke: non-finite moment on the card")
+        if not torch.allclose(a, c, rtol=tol["m_rtol"], atol=tol["m_atol"]):
+            fail(f"lm_train {arch} smoke (accum {accum}, compress {compress}): first moment on "
+                 f"the card != the CPU, max|diff|={(a - c).abs().max().item():.3e}")
+        err["m"] = max(err["m"], float((a - c).abs().max()))
+    return err
+
+
+def _lm_train_launcher(env):
+    """``python -m repro_torch.launch.train_lm`` at full width on the SSM
+    config, then again for more steps on the same checkpoint directory,
+    which must resume.  Checks free disk for three checkpoints first."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import train_state_specs
+
+    arch, steps, steps2, every = LM_TRAIN_LAUNCH
+    ckpt = REPO / "build" / "lm_train_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    ckpt.mkdir(parents=True)
+    need = 3 * _tree_bytes(train_state_specs(get_config(arch)))  # keep=3 committed steps
+    free = shutil.disk_usage(ckpt).free
+    if free < need:
+        fail(f"lm_train: {free / 1e9:.1f} GB free under {ckpt}, the launcher's three "
+             f"{arch} checkpoints need {need / 1e9:.1f} GB")
+    runs = []
+    try:
+        for n, resumed in ((steps, None), (steps2, steps)):
+            argv = ["-m", "repro_torch.launch.train_lm", "--arch", arch, "--steps", str(n),
+                    "--ckpt-every", str(every), "--ckpt-dir", str(ckpt), "--device", "cuda"]
+            t0 = time.perf_counter()
+            res = subprocess.run([sys.executable, *argv], cwd=REPO, env=env,
+                                 capture_output=True, text=True, timeout=900)
+            wall = time.perf_counter() - t0
+            if res.returncode != 0:
+                fail(f"python {' '.join(argv)} exited {res.returncode}:\n"
+                     f"{res.stdout[-2000:]}\n{res.stderr[-2000:]}")
+            lines = [ln for ln in res.stdout.splitlines() if ln.startswith("[train]")]
+            if len(lines) != 2:
+                fail(f"python {' '.join(argv)}: no [train] lines in\n{res.stdout[-2000:]}")
+            if resumed is not None and f"[ft] resumed from step {resumed}" not in res.stdout:
+                fail(f"python {' '.join(argv)}: did not resume from step {resumed}:\n"
+                     f"{res.stdout[-2000:]}")
+            runs.append({"argv": " ".join(argv[2:]), "exit": 0, "wall_s": wall,
+                         "train_lines": lines, "resumed_from": resumed})
+            print(f"[chip_smoke] lm_train: python {' '.join(argv)} exit 0 in {wall:.1f} s: "
+                  f"{' | '.join(lines)}", flush=True)
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    return {"checkpoint_bytes": need // 3, "runs": runs}
+
+
+def lm_train_path(dev):
+    """Phase 9: LM training.  Full-width ``gemma-2b`` under the ternary STE
+    at 1 x 4096 tokens; the ten SMOKE configs (and ``gemma-2b`` with
+    ``accum_steps=2`` and with ``compress_grads``) card == CPU; the launcher
+    at full width with a resume.  No kernel of its own: K1 and K2 must
+    launch 0 times."""
+    from repro_torch.configs import ARCH_IDS
+    from repro_torch.kernels.ternary_conv2d import ternary_conv2d_cuda
+    from repro_torch.kernels.ternary_matmul import ternary_matmul_cuda
+
+    t_phase = time.perf_counter()
+    ternary_conv2d_cuda.launches = 0
+    ternary_matmul_cuda.launches = 0
+    out = {"full_width": _lm_train_full_width(dev)}
+    fw, bd = out["full_width"], out["full_width"]["bound"]
+    print(f"[chip_smoke] lm_train: {fw['arch']} ternary ({fw['n_params'] / 1e9:.2f} B params, "
+          f"state {fw['state_bytes'] / 1e9:.2f} GB) 1x{LM_TRAIN_SEQ}: losses "
+          f"{', '.join(f'{x:.4f}' for x in fw['losses'])}; host ms/step "
+          f"{', '.join(f'{x:.1f}' for x in fw['host_ms_per_step'])}; last step "
+          f"{fw['device_ms_per_step'] or float('nan'):.1f} device ms over "
+          f"{fw['device_kernels_per_step']} "
+          f"kernels (bound {bd['bound_ms']:.2f} ms, {bd['bound_by']}); peak "
+          f"{fw['peak_memory_bytes'] / 2**30:.2f} GiB", flush=True)
+
+    smoke = {arch: _lm_train_smoke_card_vs_cpu(arch, dev) for arch in ARCH_IDS}
+    smoke[f"{LM_TRAIN_ARCH} accum_steps=2"] = _lm_train_smoke_card_vs_cpu(LM_TRAIN_ARCH, dev,
+                                                                         accum=2)
+    smoke[f"{LM_TRAIN_ARCH} compress_grads"] = _lm_train_smoke_card_vs_cpu(
+        LM_TRAIN_ARCH, dev, compress=True)
+    out["smoke_card_vs_cpu_max_abs_err"] = smoke
+    print(f"[chip_smoke] lm_train: {len(smoke)} SMOKE train steps on the card == the CPU "
+          f"(metrics max|diff| {max(e['metrics'] for e in smoke.values()):.2e}, first moment "
+          f"{max(e['m'] for e in smoke.values()):.2e})", flush=True)
+
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        [str(REPO / "src")] + [p for p in [os.environ.get("PYTHONPATH")] if p])}
+    out["launcher"] = _lm_train_launcher(env)
+
+    launches = {"ternary_conv2d": ternary_conv2d_cuda.launches,
+                "ternary_matmul": ternary_matmul_cuda.launches}
+    if any(launches.values()):
+        fail(f"lm_train: the LM training path launched the CUTIE kernels: {launches}")
+    out["kernel_launches"] = launches
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
 def main() -> int:
     # phase 1: device
     if not torch.cuda.is_available():
@@ -1475,7 +1728,10 @@ def main() -> int:
     # phase 8: the LM serving path
     lm_report = lm_path(dev)
 
-    # phase 9: results
+    # phase 9: the LM training path
+    lm_train_report = lm_train_path(dev)
+
+    # phase 10: results
     mm = mm_rows[0]  # the quickstart's launch: 64x2048x512 float32
     kernels = {"kernels": [{
         "name": "ternary_conv2d", "route": "cuda", "source": K1_SOURCE,
@@ -1489,6 +1745,7 @@ def main() -> int:
         "launches_fleet": fleet["ungated"]["k1_launches"],
         "launches_train": k1_train,
         "launches_train_cover": "the final deployed eval of the full-width cifar10_tnn run",
+        "launches_lm_train": lm_train_report["kernel_launches"]["ternary_conv2d"],
         "times_cover": "the 9 launches of one pool tick at pool size 8 (sum)",
         "shapes": per_shape,
     }, {
@@ -1499,6 +1756,7 @@ def main() -> int:
         "bound_by": mm["bound_by"], "library_ms": mm["library_ms"],
         "ms_over_library": mm["ms"] / mm["library_ms"],
         "launches_cover": "the quickstart path",
+        "launches_lm_train": lm_train_report["kernel_launches"]["ternary_matmul"],
         "times_cover": "one launch at the quickstart shape 64x2048x512, float32",
         "shapes": mm_rows,
     }]}
@@ -1506,6 +1764,7 @@ def main() -> int:
     print(json.dumps({"fleet": fleet}), flush=True)
     print(json.dumps({"train": train_report}), flush=True)
     print(json.dumps({"lm": lm_report}), flush=True)
+    print(json.dumps({"lm_train": lm_train_report}), flush=True)
     print(json.dumps(kernels), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -134,3 +134,21 @@ def lm_cache_from_reference(cache_numpy: Dict, device="cuda") -> Dict:
     cache, leaves as numpy) as tensors on ``device``, dtypes kept: the KV /
     SSM state leaves, ``len`` a 0-d int32, ``enc_out`` for enc-dec."""
     return _lm_tree(cache_numpy, resolve_device(device))
+
+
+def lm_train_state_from_reference(state_numpy, device="cuda"):
+    """The reference's LM ``TrainState`` (`repro.launch.steps`; its
+    ``params``, ``opt = AdamWState(step, m, v)`` and optional ``residuals``
+    with leaves handed over as numpy) as the port's `TrainState` on
+    ``device``, every dtype kept."""
+    from repro_torch.launch.steps import TrainState
+    from repro_torch.optim.adamw import AdamWState
+
+    dev = resolve_device(device)
+    step, m, v = state_numpy.opt
+    residuals = state_numpy.residuals
+    return TrainState(
+        params=_lm_tree(state_numpy.params, dev),
+        opt=AdamWState(step=_array_tensor(step, dev), m=_lm_tree(m, dev), v=_lm_tree(v, dev)),
+        residuals=None if residuals is None else _lm_tree(residuals, dev),
+    )

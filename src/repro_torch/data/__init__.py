@@ -3,11 +3,13 @@ from repro_torch.data.pipeline import (
     CifarLikePipeline,
     DVSEventPipeline,
     KWSSpectrogramPipeline,
+    LMTokenPipeline,
     PipelineState,
+    pipeline_for,
     pipeline_for_net,
 )
 
 __all__ = [
     "CifarLikePipeline", "DVSEventPipeline", "KWSSpectrogramPipeline",
-    "PipelineState", "pipeline_for_net",
+    "LMTokenPipeline", "PipelineState", "pipeline_for", "pipeline_for_net",
 ]

@@ -1,7 +1,8 @@
 """Deterministic synthetic data pipelines with checkpointable cursors.
-Counterpart of `repro.data.pipeline`; this part of the port holds the CUTIE
-pipelines (the reference's LM token pipeline is not ported):
+Counterpart of `repro.data.pipeline`:
 
+  * LMTokenPipeline        — zipf-distributed token ids (+ shifted targets)
+                             for the LM scaffold (`launch/train_lm.py`)
   * CifarLikePipeline      — ternarized images + labels (``cifar10_tnn``)
   * DVSEventPipeline       — sparse event frames [T, H, W, 2] (``dvs_cnn_tcn``)
   * KWSSpectrogramPipeline — ternary spectrogram clips [T, H, W, 1]
@@ -33,6 +34,38 @@ class PipelineState:
     @staticmethod
     def from_dict(d: Dict) -> "PipelineState":
         return PipelineState(seed=int(d["seed"]), step=int(d["step"]))
+
+
+class LMTokenPipeline:
+    """Synthetic LM stream.  Batch = {tokens [B,S], targets [B,S]} int32
+    (+ ``frontend_embeds`` [B,P,D] / ``enc_embeds`` [B,S_enc,D] float32 for
+    stub-fronted and encoder-decoder configs), drawn in the reference's
+    order so the batches are its own bit for bit."""
+
+    def __init__(self, vocab_size: int, seq_len: int, batch: int, *, seed: int = 0,
+                 frontend_seq: int = 0, d_model: int = 0, enc_seq: int = 0):
+        self.vocab, self.seq, self.batch = vocab_size, seq_len, batch
+        self.frontend_seq, self.d_model, self.enc_seq = frontend_seq, d_model, enc_seq
+        self.state = PipelineState(seed=seed, step=0)
+
+    def batch_at(self, step: int) -> Dict[str, np.ndarray]:
+        rng = np.random.default_rng((self.state.seed << 20) ^ step)
+        # zipf-ish marginal: realistic softmax-loss magnitudes
+        z = rng.zipf(1.3, size=(self.batch, self.seq + 1))
+        toks = (z % self.vocab).astype(np.int32)
+        out = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+        if self.frontend_seq:
+            out["frontend_embeds"] = rng.standard_normal(
+                (self.batch, self.frontend_seq, self.d_model), np.float32)
+        if self.enc_seq:
+            out["enc_embeds"] = rng.standard_normal(
+                (self.batch, self.enc_seq, self.d_model), np.float32)
+        return out
+
+    def next_batch(self) -> Dict[str, np.ndarray]:
+        b = self.batch_at(self.state.step)
+        self.state.step += 1
+        return b
 
 
 class CifarLikePipeline:
@@ -183,4 +216,15 @@ def pipeline_for_net(graph, batch: int, *, seed: int = 0, noise: float = 0.5,
     return CifarLikePipeline(
         batch, seed=seed, n_classes=graph.n_classes, hw=graph.input_hw[0],
         ch=graph.input_ch, noise=noise,
+    )
+
+
+def pipeline_for(cfg, shape, *, seed: int = 0) -> LMTokenPipeline:
+    """The LM pipeline matching an (arch, shape) cell: a
+    `repro_torch.models.ModelConfig` and a `ShapeConfig`."""
+    return LMTokenPipeline(
+        cfg.vocab_size, shape.seq_len, shape.global_batch, seed=seed,
+        frontend_seq=cfg.frontend_seq if cfg.frontend == "vision" else 0,
+        d_model=cfg.d_model,
+        enc_seq=cfg.enc_seq_len if cfg.is_encdec else 0,
     )

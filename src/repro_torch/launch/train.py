@@ -19,8 +19,8 @@ the float->ternary accuracy gap -> silicon cost report.
 decreased and the QAT-vs-deployed gap stays bounded, exits 1 otherwise.
 ``--device`` defaults to ``cuda``; without a CUDA device that is an error,
 not a move to the CPU.  ``--trace FILE.json`` writes a Chrome/Perfetto
-trace (`repro_torch.obs`).  The reference's LM launcher (``train_lm``) is
-not ported.
+trace (`repro_torch.obs`).  The LM scaffold's launcher is
+`repro_torch.launch.train_lm`.
 """
 from __future__ import annotations
 

@@ -4,13 +4,14 @@
 jamba hybrid, encoder-decoder and stub-fronted multimodal backbones), in the
 reference's functional form over a params dict with the reference's paths
 and leaf order.  It serves (``forward`` in modes ``train``, ``prefill`` and
-``decode``); the loss comes with the training slice.  ``cutie_net`` is the
-legacy CUTIE network shim.
+``decode``) and trains (``lm_loss``, the sequence-chunked cross-entropy).
+``cutie_net`` is the legacy CUTIE network shim.
 """
 from repro_torch.models.config import ModelConfig, ShapeConfig, SHAPES
 from repro_torch.models.model import (
     init_params,
     forward,
+    lm_loss,
     cache_spec,
     init_cache,
     build_segments,

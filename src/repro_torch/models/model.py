@@ -1,13 +1,19 @@
 """Unified LM: one model definition covering all 10 assigned architectures.
-Counterpart of `repro.models.model` (inference: train-mode logits, prefill
-and decode; the loss comes with the training slice).
+Counterpart of `repro.models.model`: train-mode logits, prefill and decode,
+and the training loss (`lm_loss`, a sequence-chunked cross-entropy).
 
 An architecture is compiled into *segments*: maximal runs of identical layer
 structure.  A segment's params are stacked along a leading layer axis,
 exactly as the reference's scanned segments hold them, so both packages
 share paths and leaf order (`repro_torch.tree`); a Python loop over that
-axis takes the place of the reference's ``lax.scan``.  ``remat`` and
-``scan_unroll`` do not apply to inference and are ignored.
+axis takes the place of the reference's ``lax.scan``.  Each stacked leaf is
+unbound once per forward (autograd's backward of ``unbind`` is one
+``stack``; indexing layer by layer would add a zero tensor of the whole
+stacked leaf into its gradient per layer).  With ``cfg.remat`` and autograd
+on, each layer runs under `torch.utils.checkpoint` (non-reentrant), the
+counterpart of the reference's ``jax.checkpoint`` around the scanned body:
+only its input is kept for the backward, which recomputes the layer.
+``scan_unroll`` has no counterpart and is ignored.
 
     dense (qwen/glm/gemma/coder/internvl): [L x {attn + dense-ffn}]
     dbrx:                                  [40 x {attn + moe}]
@@ -27,7 +33,10 @@ import dataclasses
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
+from repro_torch.core.ternary import ste_ternary_weights, unpack_ternary
 from repro_torch.device import resolve_device
 from repro_torch.models.attention import (
     attn_init,
@@ -54,6 +63,8 @@ from repro_torch.models.mamba2 import mamba_forward, mamba_init, mamba_state_spe
 from repro_torch.models.mlp import mlp_forward, mlp_init
 from repro_torch.models.moe import moe_forward, moe_init
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
+
+AUX_LOSS_COEF = 0.01
 
 # ---------------------------------------------------------------------------
 # Segment plan
@@ -191,15 +202,17 @@ def _stack_trees(trees: List[Any]):
     return tree_unflatten(trees[0], [torch.stack(col) for col in columns])
 
 
+def _unstack(tree, n: int) -> List[Any]:
+    """A tree stacked on axis 0 -> its ``n`` per-layer trees (views)."""
+    columns = [torch.unbind(a) for a in tree_leaves(tree)]
+    return [tree_unflatten(tree, [col[i] for col in columns]) for i in range(n)]
+
+
 def _segment_forward(
     seg_params, cfg: ModelConfig, seg: Segment, x, positions, *,
     cache=None, cache_len=None, enc_out=None,
 ):
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    new_caches = []
-    for i in range(seg.n_steps):
-        lp = tree_map(lambda a: a[i], seg_params)
-        cache_in = None if cache is None else tree_map(lambda a: a[i], cache)
+    def layer(lp, x, aux, cache_in):
         layer_cache = {}
         for j in range(seg.period):
             sub_cache = None if cache_in is None else cache_in.get(f"sub{j}")
@@ -210,7 +223,19 @@ def _segment_forward(
             )
             layer_cache[f"sub{j}"] = c_out if c_out is not None else {}
             aux = aux + aux_j
-        new_caches.append(layer_cache)
+        return x, aux, layer_cache
+
+    remat = cfg.remat and cache is None and torch.is_grad_enabled()
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    caches_in = [None] * seg.n_steps if cache is None else _unstack(cache, seg.n_steps)
+    new_caches = []
+    for lp, cache_in in zip(_unstack(seg_params, seg.n_steps), caches_in):
+        if remat:
+            x, aux = checkpoint(lambda x, aux, lp=lp: layer(lp, x, aux, None)[:2], x, aux,
+                                use_reentrant=False)
+        else:
+            x, aux, layer_cache = layer(lp, x, aux, cache_in)
+            new_caches.append(layer_cache)
     if cache is None:
         return x, None, aux
     return x, _stack_trees(new_caches), aux
@@ -375,3 +400,72 @@ def forward(
             )
 
     return ModelOutput(logits=logits, cache=new_cache, aux_loss=aux_total)
+
+
+# ---------------------------------------------------------------------------
+# Training loss
+# ---------------------------------------------------------------------------
+
+def _ce_chunk(hidden_c, targets_c, head_w, softcap):
+    """CE over one sequence chunk.  hidden_c: [B, c, D]; head_w: [D, V].
+    Returns (summed NLL float32, unmasked targets int32)."""
+    logits = (hidden_c @ head_w.to(hidden_c.dtype)).to(torch.float32)
+    if softcap:
+        logits = torch.tanh(logits / softcap) * softcap
+    mask = targets_c >= 0
+    tgt = torch.clamp(targets_c, min=0).long()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, tgt[..., None])[..., 0]
+    return torch.sum((logz - gold) * mask), torch.sum(mask, dtype=torch.int32)
+
+
+def chunked_ce_loss(hidden, targets, head_w, *, softcap=0.0, chunk: int = 512):
+    """Sequence-chunked cross-entropy: the full [B, S, V] logits tensor never
+    materializes.  With autograd on, each chunk runs under
+    `torch.utils.checkpoint`, so its logits are recomputed in the backward
+    instead of kept (a ``gemma-2b`` step at S = 4096 would otherwise keep 8
+    chunks of [1, 512, 256000] float32 logits and their softmax).  Returns
+    (mean NLL over targets >= 0, their count)."""
+    b, s, d = hidden.shape
+    c = min(chunk, s)
+    pad = (-s) % c
+    if pad:
+        hidden = F.pad(hidden, (0, 0, 0, pad))
+        targets = F.pad(targets, (0, pad), value=-1)
+    remat = torch.is_grad_enabled()
+    nll = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    ntok = torch.zeros((), dtype=torch.int32, device=hidden.device)
+    for i in range(hidden.shape[1] // c):
+        args = (hidden[:, i * c:(i + 1) * c], targets[:, i * c:(i + 1) * c], head_w, softcap)
+        nll_i, nt_i = (checkpoint(_ce_chunk, *args, use_reentrant=False) if remat
+                       else _ce_chunk(*args))
+        nll, ntok = nll + nll_i, ntok + nt_i
+    return nll / torch.clamp(ntok, min=1), ntok
+
+
+def lm_loss(
+    params, cfg: ModelConfig, tokens, targets, *,
+    frontend_embeds=None, enc_embeds=None, shard=None,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Next-token cross-entropy (+ MoE aux).  targets: [B, S] integer,
+    already shifted by the data pipeline; -1 entries are masked.  Returns
+    (loss + AUX_LOSS_COEF * aux, {"loss", "aux", "ntok"})."""
+    out = forward(
+        params, cfg, tokens, mode="train", logits_mode="hidden",
+        frontend_embeds=frontend_embeds, enc_embeds=enc_embeds, shard=shard,
+    )
+    head_w = (
+        params["embed"]["table"].T if cfg.tie_embeddings else _dense_w(params["lm_head"])
+    )
+    if cfg.quant == "ternary" and not cfg.tie_embeddings:
+        head_w = ste_ternary_weights(head_w, 0.7)
+    loss, ntok = chunked_ce_loss(out.logits, targets, head_w, softcap=cfg.logit_softcap)
+    total = loss + AUX_LOSS_COEF * out.aux_loss
+    return total, {"loss": loss, "aux": out.aux_loss, "ntok": ntok}
+
+
+def _dense_w(p):
+    if "w" in p:
+        return p["w"]
+    w = unpack_ternary(p["packed"], axis=0).to(torch.float32)
+    return w * p["scale"].to(torch.float32)[None, :]

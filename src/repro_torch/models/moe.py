@@ -18,6 +18,7 @@ from typing import Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import einsum, linear, linear_init, normal, silu
@@ -64,7 +65,10 @@ def moe_forward(p, cfg: ModelConfig, x: torch.Tensor) -> Tuple[torch.Tensor, tor
 
     The sequence is processed in chunks of MOE_SEQ_CHUNK tokens (one chunk
     when S is not a multiple): capacity is per (batch row x seq chunk)
-    group, and the aux loss is the mean over chunks."""
+    group, and the aux loss is the mean over chunks.  With autograd on, each
+    of several chunks runs under `torch.utils.checkpoint`, as the
+    reference's ``jax.checkpoint`` around its scanned chunk: one chunk's
+    dispatch buffers are live in the backward at a time."""
     b, s, d = x.shape
     c = min(MOE_SEQ_CHUNK, s)
     if s % c:
@@ -72,9 +76,12 @@ def moe_forward(p, cfg: ModelConfig, x: torch.Tensor) -> Tuple[torch.Tensor, tor
     if s == c:
         return _moe_chunk(p, cfg, x)
     n = s // c
+    remat = torch.is_grad_enabled()
     ys, auxs = [], []
     for i in range(n):
-        y, aux = _moe_chunk(p, cfg, x[:, i * c:(i + 1) * c])
+        xc = x[:, i * c:(i + 1) * c]
+        y, aux = (checkpoint(lambda xc: _moe_chunk(p, cfg, xc), xc, use_reentrant=False)
+                  if remat else _moe_chunk(p, cfg, xc))
         ys.append(y)
         auxs.append(aux)
     return torch.cat(ys, dim=1), torch.stack(auxs).mean()

@@ -12,7 +12,12 @@ Plain functions over the params tree (dicts, lists and tensors), not
     cosine learning rate that decays to ``min_lr_frac * lr``.
 
 Every function returns new tensors and leaves its inputs untouched, so a
-train state can be checkpointed or compared at any step.
+train state can be checkpointed or compared at any step — except
+``adamw_update(..., donate=True)``, the counterpart of a jitted step that
+donates its state: it scales the gradients and writes params, m and v in
+place, by the same operations in the same order, so its results are the
+same bits.  A full-width LM state (params + m + v) is three times the
+params; without donation the old and the new state would be alive at once.
 """
 from __future__ import annotations
 
@@ -60,9 +65,13 @@ def global_norm(tree) -> torch.Tensor:
     return torch.sqrt(torch.sum(torch.stack(leaves)))
 
 
-def clip_by_global_norm(grads, max_norm: float):
+def clip_by_global_norm(grads, max_norm: float, *, donate: bool = False):
+    """``(grads scaled to a global norm <= max_norm, the norm)``; with
+    ``donate`` the grads are scaled in place."""
     gn = global_norm(grads)
     scale = torch.clamp(max_norm / torch.clamp(gn, min=1e-9), max=1.0)
+    if donate:
+        return tree_map(lambda g: g.mul_(scale), grads), gn
     return tree_map(lambda g: (g * scale).to(g.dtype), grads), gn
 
 
@@ -84,10 +93,12 @@ def adamw_init(params) -> AdamWState:
 
 
 def adamw_update(
-    cfg: AdamWConfig, params, grads, state: AdamWState
+    cfg: AdamWConfig, params, grads, state: AdamWState, *, donate: bool = False
 ) -> Tuple[Any, AdamWState, dict]:
-    """One AdamW step: ``(new params, new state, {"lr", "grad_norm"})``."""
-    grads, gn = clip_by_global_norm(grads, cfg.grad_clip)
+    """One AdamW step: ``(new params, new state, {"lr", "grad_norm"})``.
+    With ``donate`` the grads, params, m and v are overwritten and the
+    returned trees hold the same tensors (bit-equal to ``donate=False``)."""
+    grads, gn = clip_by_global_norm(grads, cfg.grad_clip, donate=donate)
     step = state.step + 1
     lr = lr_schedule(cfg, step)
     b1c = 1 - cfg.b1 ** step.to(torch.float32)
@@ -97,13 +108,19 @@ def adamw_update(
         if not p.is_floating_point():
             return p, m, v  # frozen (packed) weights
         gf = g.to(torch.float32)
-        m_new = cfg.b1 * m + (1 - cfg.b1) * gf
-        v_new = cfg.b2 * v + (1 - cfg.b2) * gf * gf
+        if donate:
+            m_new = m.mul_(cfg.b1).add_((1 - cfg.b1) * gf)
+            v_new = v.mul_(cfg.b2).add_((1 - cfg.b2) * gf * gf)
+        else:
+            m_new = cfg.b1 * m + (1 - cfg.b1) * gf
+            v_new = cfg.b2 * v + (1 - cfg.b2) * gf * gf
         upd_ = (m_new / b1c) / (torch.sqrt(v_new / b2c) + cfg.eps)
         # decoupled weight decay on matrices only (ndim >= 2)
         wd = cfg.weight_decay if p.ndim >= 2 else 0.0
         pf = p.to(torch.float32)
         p_new = pf - lr * (upd_ + wd * pf)
+        if donate:
+            return p.copy_(p_new), m_new, v_new
         return p_new.to(p.dtype), m_new, v_new
 
     out = [upd(*xs) for xs in zip(*(tree_leaves(t) for t in (params, grads, state.m, state.v)))]

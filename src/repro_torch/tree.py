@@ -9,19 +9,22 @@ so a checkpoint's flat leaf index means the same leaf in both packages.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Iterator, List
+from typing import Any, Callable, Iterator, List, Optional
 
 
 def _is_namedtuple(x) -> bool:
     return isinstance(x, tuple) and hasattr(x, "_fields")
 
 
-def tree_leaves(tree) -> List:
-    """The leaves of ``tree`` in the reference's flatten order."""
+def tree_leaves(tree, is_leaf: Optional[Callable[[Any], bool]] = None) -> List:
+    """The leaves of ``tree`` in the reference's flatten order; a node for
+    which ``is_leaf`` is true is a leaf, as in `jax.tree_util`."""
+    if is_leaf is not None and is_leaf(tree):
+        return [tree]
     if isinstance(tree, dict):
-        return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
+        return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k], is_leaf)]
     if isinstance(tree, (list, tuple)):
-        return [leaf for x in tree for leaf in tree_leaves(x)]
+        return [leaf for x in tree for leaf in tree_leaves(x, is_leaf)]
     return [] if tree is None else [tree]
 
 

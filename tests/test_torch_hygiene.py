@@ -17,7 +17,8 @@ DYNAMIC = re.compile(r"""(?:import_module|__import__)\(\s*["'](jax|repro)(?:\.|[
 
 def _sources():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + sorted(
-        (ROOT / "benchmarks").glob("*_torch.py"))
+        (ROOT / "benchmarks").glob("*_torch.py")) + sorted(
+        (ROOT / "examples").glob("*_torch.py"))
     assert len(files) > 20
     return files
 
@@ -39,7 +40,8 @@ def test_every_port_module_imports_without_a_cuda_toolchain():
                  "repro_torch.serving.fleet", "repro_torch.serving.gating",
                  "repro_torch.train.loop", "repro_torch.optim.adamw",
                  "repro_torch.ckpt.checkpoint", "repro_torch.launch.ft",
-                 "repro_torch.launch.train", "repro_torch.obs.export"):
+                 "repro_torch.launch.train", "repro_torch.obs.export",
+                 "repro_torch.launch.train_lm", "repro_torch.optim.compress"):
         assert name in names
     for name in names:
         importlib.import_module(name)
