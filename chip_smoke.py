@@ -56,9 +56,20 @@ line):
                 Then times each kernel, its plain version and a library
                 yardstick
   4. serve      init -> quantize(calib) -> 16 streams x 8 frames, staggered
-                arrivals, through the pool; gates: finite logits, all streams
-                completed, pooled == lone `StreamSession` bit for bit,
-                fused == ref on the card, 9 K1 launches per pool tick
+                arrivals, through the pool, whose step is captured once as a
+                CUDA graph and replayed every later tick; gates: finite
+                logits, all streams completed, the pool's `trace_count` 1
+                (one capture), 9 K1 launches per pool tick (the eager first
+                tick's and the graph's on every replay), the same run with
+                ``jit=False`` bit-equal per stream, pooled == lone
+                `StreamSession` (captured) == lone `StreamSession` (eager)
+                bit for bit, fused == ref on the card.  On
+                ``dvs_cnn_tcn_smoke``, captured == eager on every backend
+                (one capture each; 9 / 0 K1 launches per tick).  Then a full
+                pool-8 tick captured and eager, timed in turns (captured,
+                eager, eager, captured; 3 rounds of 40 ticks): host ms/tick,
+                frames/s, and a `torch.profiler` window of each for device
+                ms/tick and the busy share
   5. quickstart `repro_torch.quickstart` on the card (exit 0, >= 1 K2 launch);
                 fused == kernel == ref == bitsim on two full-width
                 ``dvs_cnn_tcn`` clips and a bitsim stream == its batch
@@ -73,8 +84,10 @@ line):
                 per net in two waves): every stream completes, logits finite
                 and == a lone `StreamSession` on the loaded program, a grow
                 and a shrink in each bucket, each rung's pool constructed
-                once (count and object identity), 9 / 7 K1 launches per
-                bucket tick, the same run with ``ingest="sync"`` bit-identical.
+                once (count and object identity), every pool that stepped
+                captured once, 9 / 7 K1 launches per bucket tick (pinned
+                feeder buffers, copies without blocking), the same run with
+                ``ingest="sync"`` bit-identical.
                 Gated fleet (``ActivityGate(16, 4, 2)``, 8 sensors per net at
                 duty 0.4): processed frames == ``ActivityGate.plan``, each
                 stream == a lone session fed exactly those frames, a positive
@@ -149,7 +162,8 @@ unless every value of x is bf16-exact, where one does.
 Each path is driven with the launch counts set to 0 just before it and read
 just after (the fleet per bucket tick, the trainer per `train` call);
 launches made to compare a kernel with its plain version fall outside
-those windows.
+those windows.  A captured step's K1 launches are counted on every replay
+(the wrapper counts nothing while a graph is being captured).
 
 Timing: CUDA events around a run of launches that were enqueued behind a
 spin kernel, after a warm-up, so the figures are device time and not the
@@ -184,6 +198,8 @@ REPEAT_LAUNCHES = 8  # launches on the same inputs that must give the same bits
 K1_GAUSSIAN = ("conv0", "tcn_d1", "5x5_stem")
 N_STREAMS = 16
 N_FRAMES = 8
+TIMED_TICKS = 40    # pool ticks per timed window (phase 4c)
+TIMING_ROUNDS = 3   # rounds of captured, eager, eager, captured
 SEED = 0
 K1_REPLACES = "src/repro/kernels/ternary_conv2d.py:91"
 K1_SOURCE = "src/repro_torch/csrc/ternary_conv2d.cu"
@@ -615,8 +631,8 @@ def serve_main_path(dev):
     ).next_batch()
     deployed = prog.quantize(params, calib=torch.from_numpy(frames).to(dev))
 
-    def run_pool(n_streams):
-        pool = deployed.serve(POOL, backend="fused")
+    def run_pool(n_streams, jit=True):
+        pool = deployed.serve(POOL, backend="fused", jit=jit)
         batcher = ContinuousBatcher(pool)
         for i in range(n_streams):
             batcher.submit(StreamRequest(
@@ -647,16 +663,30 @@ def serve_main_path(dev):
     if launches != 9 * busy_ticks:
         fail(f"{launches} kernel launches over {busy_ticks} pool ticks; the "
              "fused path makes 9 per tick (5 conv + 4 TCN layers)")
+    if batcher.pool.trace_count != 1 or not batcher.pool.captured:
+        fail(f"the pool's step was captured {batcher.pool.trace_count} times "
+             f"(captured: {batcher.pool.captured}); the contract is once")
 
-    # pooled == lone StreamSession, bit for bit
+    # the same churn run on the eager step (jit=False): bit-equal per stream
     by_id = {r.stream_id: r for r in results}
+    eager_batcher, eager_results, eager_wall = run_pool(N_STREAMS, jit=False)
+    if eager_batcher.pool.captured or len(eager_results) != N_STREAMS:
+        fail("the jit=False pool captured its step or lost a stream")
+    for r in eager_results:
+        if not np.array_equal(r.logits, by_id[r.stream_id].logits):
+            fail(f"{r.stream_id}: jit=False logits != jit=True logits")
+
+    # pooled == lone StreamSession (captured) == lone StreamSession (eager)
     for i in (0, 5, N_STREAMS - 1):
-        session = deployed.stream(batch=1, backend="fused")
         clip = torch.from_numpy(frames[i:i + 1]).to(dev)
-        for t in range(N_FRAMES):
-            lone = session.step(clip[:, t])
-        if not np.array_equal(by_id[f"sensor-{i}"].logits, lone.cpu().numpy()[0]):
-            fail(f"sensor-{i}: pooled logits != lone StreamSession logits")
+        for jit in (True, False):
+            session = deployed.stream(batch=1, backend="fused", jit=jit)
+            for t in range(N_FRAMES):
+                lone = session.step(clip[:, t])
+            if session.captured != jit or session.trace_count != 1:
+                fail(f"sensor-{i}: lone session jit={jit} captured={session.captured}")
+            if not np.array_equal(by_id[f"sensor-{i}"].logits, lone.cpu().numpy()[0]):
+                fail(f"sensor-{i}: pooled logits != lone StreamSession(jit={jit}) logits")
     # fused == ref on the card, whole clips through the batch forward
     clips = torch.from_numpy(frames[:2]).to(dev)
     fused = deployed.forward(clips, backend="fused")
@@ -672,15 +702,124 @@ def serve_main_path(dev):
         "frames_processed": stats["frames_processed"],
         "mean_occupancy": stats["mean_occupancy"],
         "wall_s": wall, "frames_per_s": stats["frames_processed"] / wall,
-        "ms_per_tick": wall / busy_ticks * 1e3,
+        "ms_per_tick": wall / busy_ticks * 1e3, "trace_count": batcher.pool.trace_count,
+        "eager_wall_s": eager_wall,
+        "eager_ms_per_tick": eager_wall / len(eager_batcher.latency_trace) * 1e3,
     }
     print(f"[chip_smoke] serve: {g.name} fused, {N_STREAMS} streams x {N_FRAMES} frames, "
           f"{POOL}-slot pool: {serving['frames_processed']} frames in {busy_ticks} ticks, "
           f"{wall:.3f} s -> {serving['frames_per_s']:.1f} frames/s, "
-          f"{serving['ms_per_tick']:.3f} ms/tick, occupancy "
+          f"{serving['ms_per_tick']:.3f} ms/tick (jit=False: "
+          f"{serving['eager_ms_per_tick']:.3f}), occupancy "
           f"{serving['mean_occupancy']:.2f}; {launches} kernel launches "
-          f"(9 per tick); pooled == lone session; fused == ref", flush=True)
+          f"(9 per tick); step captured once; jit=True == jit=False; pooled == lone "
+          f"session (captured and eager); fused == ref", flush=True)
+    serving["backends_captured_vs_eager"] = _captured_vs_eager_backends(dev)
+    serving["tick_times"] = _tick_times(deployed, dev)
     return launches, serving
+
+
+def _captured_vs_eager_backends(dev):
+    """Phase 4b: on ``dvs_cnn_tcn_smoke``, a churn run (6 streams x 6
+    frames through a 4-slot pool) on every backend with the captured step
+    (``jit=True``) and the eager one: bit-equal logits, one capture, and 9
+    K1 launches per tick on the two kernel backends, none on ``ref`` /
+    ``bitsim``.  Returns the per-backend ticks and K1 launches."""
+    from repro_torch.api import BACKENDS, get_net
+    from repro_torch.data.pipeline import DVSEventPipeline
+    from repro_torch.kernels.ternary_conv2d import ternary_conv2d_cuda
+    from repro_torch.serving import ContinuousBatcher, StreamRequest
+
+    prog = get_net("dvs_cnn_tcn_smoke")
+    g = prog.graph
+    frames, _ = DVSEventPipeline(6, steps=6, hw=g.input_hw[0], seed=SEED).next_batch()
+    deployed = prog.quantize(prog.init(torch.Generator().manual_seed(SEED), device=dev),
+                             calib=torch.from_numpy(frames).to(dev))
+    out = {}
+    for backend in BACKENDS:
+        logits = {}
+        for jit in (True, False):
+            pool = deployed.serve(4, backend=backend, jit=jit)
+            batcher = ContinuousBatcher(pool)
+            for i in range(6):
+                batcher.submit(StreamRequest(f"s{i}", frames[i], arrival=i))
+            ternary_conv2d_cuda.launches = 0
+            logits[jit] = {r.stream_id: r.logits for r in batcher.run()}
+            busy = len(batcher.latency_trace)
+            per_tick = 9 if backend in ("fused", "kernel") else 0
+            if ternary_conv2d_cuda.launches != per_tick * busy:
+                fail(f"{backend} jit={jit}: {ternary_conv2d_cuda.launches} K1 launches "
+                     f"over {busy} ticks, expected {per_tick} per tick")
+            if pool.trace_count != 1 or pool.captured != jit:
+                fail(f"{backend} jit={jit}: trace_count {pool.trace_count}, "
+                     f"captured {pool.captured}")
+        for sid, want in logits[False].items():
+            if not np.array_equal(logits[True][sid], want):
+                fail(f"{backend}: captured step != eager step for {sid}")
+        out[backend] = {"busy_ticks": busy, "k1_launches": ternary_conv2d_cuda.launches}
+    print(f"[chip_smoke] serve: dvs_cnn_tcn_smoke captured == eager on "
+          f"{', '.join(out)} (one capture each)", flush=True)
+    return out
+
+
+def _tick_times(deployed, dev):
+    """Phase 4c: a full pool-8 tick of the served program through
+    `SessionPool.step` (host assembly included), captured (``jit=True``)
+    and eager, timed in turns — captured, eager, eager, captured, for
+    ``TIMING_ROUNDS`` rounds of ``TIMED_TICKS`` ticks ending in a
+    synchronise — then one `torch.profiler` window of each for the device
+    time.  Returns host ms/tick (each window and the median), frames/s,
+    device ms and kernels per tick and the busy share (device ms over
+    the median host ms) of each."""
+    from repro_torch.data.pipeline import DVSEventPipeline
+
+    g = deployed.graph
+    frames, _ = DVSEventPipeline(POOL, steps=TIMED_TICKS + 5, hw=g.input_hw[0],
+                                 seed=SEED + 1).next_batch()
+    pools = {}
+    for jit in (True, False):
+        pool = pools[jit] = deployed.serve(POOL, backend="fused", jit=jit)
+        for i in range(POOL):
+            pool.admit(f"s{i}")
+
+    def ticks(pool, lo=5, hi=5 + TIMED_TICKS):
+        for t in range(lo, hi):
+            pool.step({f"s{i}": frames[i, t] for i in range(POOL)})
+
+    for pool in pools.values():
+        ticks(pool, 0, 5)  # warm-up; the jit=True pool captures here
+    torch.cuda.synchronize()
+    host = {True: [], False: []}
+    for _ in range(TIMING_ROUNDS):
+        for jit in (True, False, False, True):
+            t0 = time.perf_counter()
+            ticks(pools[jit])
+            torch.cuda.synchronize()
+            host[jit].append((time.perf_counter() - t0) / TIMED_TICKS * 1e3)
+    out = {}
+    for jit, name in ((True, "captured"), (False, "eager")):
+        n, device_ms, _top = _profile_kernels(lambda: ticks(pools[jit]))
+        median = float(np.median(host[jit]))
+        out[name] = {
+            "host_ms_per_tick": host[jit], "host_ms_per_tick_median": median,
+            "frames_per_s": POOL / median * 1e3,
+            "device_ms_per_tick": device_ms / TIMED_TICKS if n else None,
+            "device_events_per_tick": n / TIMED_TICKS if n else None,
+            "device_busy_share": device_ms / TIMED_TICKS / median if n else None,
+        }
+        if pools[jit].trace_count != 1 or pools[jit].captured != jit:
+            fail(f"timed pool jit={jit}: trace_count {pools[jit].trace_count}")
+    for name, o in out.items():
+        print(f"[chip_smoke] serve: pool {POOL} {name}: host ms/tick "
+              + " ".join(f"{v:.4f}" for v in o["host_ms_per_tick"])
+              + f" (median {o['host_ms_per_tick_median']:.4f}, "
+              f"{o['frames_per_s']:.1f} frames/s); device "
+              + ("not measured (the profiler saw no device events)"
+                 if o["device_ms_per_tick"] is None else
+                 f"{o['device_ms_per_tick']:.4f} ms/tick over "
+                 f"{o['device_events_per_tick']:.1f} events, busy {o['device_busy_share']:.3f}"),
+              flush=True)
+    return out
 
 
 def quickstart_path(dev):
@@ -877,6 +1016,12 @@ def fleet_path(dev):
             fail(f"fleet: {name} rungs seen {sorted(pools_seen[name])} != built")
         if any(tc > 1 for tc in s["pools_traced"].values()):
             fail(f"fleet: {name} step programs {s['pools_traced']} (<= 1 per pool)")
+        stepped = {size for size, _ in router.buckets[name].batcher.latency_trace}
+        bucket_pools = router.buckets[name].pools
+        if any(s["pools_traced"][size] != 1 or not bucket_pools[size].captured
+               for size in stepped):
+            fail(f"fleet: {name} pools that stepped {sorted(stepped)} captured "
+                 f"{s['pools_traced']} (each once)")
         if not s["ingest_threaded"]:
             fail(f"fleet: {name} feeder did not run on its thread")
         if launches[name] != per_tick * busy:
@@ -888,6 +1033,7 @@ def fleet_path(dev):
             "scale_events": [f"{e['from_size']}->{e['to_size']}@{e['tick']}"
                              for e in s["scale_events"]],
             "pools_built": s["pools_built"], "pools_traced": s["pools_traced"],
+            "rungs_stepped": sorted(stepped),
             "ms_per_tick_by_rung": {
                 str(size): {"ticks": v["ticks"], "p50": v["p50_ms"], "p99": v["p99_ms"]}
                 for size, v in s["latency_by_pool_size"].items()},
@@ -940,6 +1086,12 @@ def fleet_path(dev):
         if g_launches[name] != per_tick * busy:
             fail(f"gated fleet: {name} made {g_launches[name]} K1 launches over "
                  f"{busy} busy ticks")
+        g_bucket = g_router.buckets[name]
+        g_stepped = {size for size, _ in g_bucket.batcher.latency_trace}
+        if any(g_bucket.pools[size].trace_count != 1 or not g_bucket.pools[size].captured
+               for size in g_stepped):
+            fail(f"gated fleet: {name} pools that stepped {sorted(g_stepped)} captured "
+                 f"{g_stats['nets'][name]['pools_traced']} (each once)")
         e = energy_summary(
             loaded[name], frames_processed=sg["frames_processed"],
             frames_total=sg["frames_processed"] + sg["frames_skipped"],

@@ -606,18 +606,21 @@ class DeployedProgram:
             window = window[None]
         return self.temporal_forward(window, backend), stream
 
-    def stream(self, batch: Optional[int] = None, backend: str = "fused") -> "StreamSession":
+    def stream(self, batch: Optional[int] = None, backend: str = "fused",
+               jit: bool = True) -> "StreamSession":
         """Open a stateful streaming session over this program's TCN ring
-        (temporal graphs only): ``session.step(frame)`` per sensor frame."""
+        (temporal graphs only): ``session.step(frame)`` per sensor frame;
+        ``jit`` as in `StreamSession`."""
         if not self.graph.is_temporal:
             raise ValueError(f"{self.graph.name} has no TCN memory to stream into")
-        return StreamSession(self, batch=batch, backend=backend)
+        return StreamSession(self, batch=batch, backend=backend, jit=jit)
 
     def serve(self, pool_size: int, backend: str = "fused", **kwargs):
         """Multi-sensor serving: a `repro_torch.serving.SessionPool` of
         ``pool_size`` slots over this program — one fixed-batch step,
         streams admitted/evicted mid-flight (continuous batching).  Keyword
-        arguments pass through to the pool (``tracer``, ``sharding``)."""
+        arguments pass through to the pool (``jit``, ``tracer``,
+        ``sharding``)."""
         from repro_torch.serving import SessionPool
 
         return SessionPool(self, pool_size, backend=backend, **kwargs)
@@ -671,20 +674,45 @@ class StreamSession:
 
     ``step(frame)`` returns the per-frame logits and advances the ring.  The
     whole session state is ONE `StreamState` (ring + monotonic frame
-    counter), so it moves wholesale: `export_state()` hands it out,
-    `load_state()` takes it back, and a `SessionPool` scatters it into (or
+    counter), so it moves wholesale: `export_state()` hands out a copy,
+    `load_state()` copies one in, and a `SessionPool` scatters it into (or
     gathers it out of) a slot of the pooled ``[P, T, C]`` state — a session
     can hop between standalone and pooled execution with bit-identical
-    logits.  The state lies on the program's device.
+    logits.  The state lies on the program's device, in tensors that keep
+    their addresses for the session's life: each step, `reset` and
+    `load_state` write into them.
+
+    ``jit`` is the reference's switch.  On a CUDA device with ``jit=True``
+    (the default) the first step runs eagerly and then captures the step as
+    a CUDA graph over the state and a static frame buffer of that first
+    frame's shape (`repro_torch.capture.CapturedStep`); later steps copy
+    the frame in and replay the graph, and a frame of another shape or
+    dtype raises.  On the CPU, or with ``jit=False``, each step runs
+    eagerly.
     """
 
     def __init__(self, deployed: DeployedProgram, batch: Optional[int] = None,
-                 backend: str = "fused"):
+                 backend: str = "fused", jit: bool = True):
+        from repro_torch.capture import CapturedStep
+
         check_backend(backend)
         self.deployed = deployed
         self.backend = backend
         self.batch = batch
-        self.reset()
+        self.jit = jit
+        g = deployed.graph
+        self.state = StreamState.create(
+            g.tcn_steps, g.feature_channels, batch=batch, device=deployed.device,
+        )
+        self._frame: Optional[torch.Tensor] = None
+        self._step = CapturedStep(self._run_step, deployed.device, capture=jit)
+
+    def _run_step(self) -> torch.Tensor:
+        logits, ring = self.deployed.stream_step(self.state.ring, self._frame, self.backend)
+        self.state.ring.buf.copy_(ring.buf)
+        self.state.ring.cursor.copy_(ring.cursor)
+        self.state.steps_seen.add_(1)
+        return logits
 
     @property
     def steps_seen(self) -> int:
@@ -697,40 +725,65 @@ class StreamSession:
         """True once the full tcn_steps window holds real (non-pad) frames."""
         return self.steps_seen >= self.deployed.graph.tcn_steps
 
+    @property
+    def trace_count(self) -> int:
+        """Captures of the step on the card (``jit=True``), step builds
+        elsewhere: 0 before the first step, then 1."""
+        return self._step.builds
+
+    @property
+    def captured(self) -> bool:
+        """True once the step is a captured CUDA graph."""
+        return self._step.captured
+
     def step(self, frame: torch.Tensor) -> torch.Tensor:
         """Absorb one sensor frame ([H,W,C] or [B,H,W,C]) and return the
         per-frame logits; the ring advances."""
         if frame.ndim == 3:
             frame = frame[None]
-        logits, ring = self.deployed.stream_step(self.state.ring, frame, self.backend)
-        self.state = StreamState(ring=ring, steps_seen=self.state.steps_seen + 1)
-        return logits
+        if not self._step.capture:
+            self._frame = frame
+        elif self._frame is None:
+            self._frame = frame.to(self.deployed.device, copy=True)
+        elif frame.shape != self._frame.shape or frame.dtype != self._frame.dtype:
+            raise ValueError(
+                f"frame {tuple(frame.shape)} {frame.dtype}: this session's "
+                f"captured step takes {tuple(self._frame.shape)} {self._frame.dtype}"
+            )
+        else:
+            self._frame.copy_(frame)
+        return self._step()
 
     def reset(self) -> None:
-        """Forget all history: fresh zero ring, frame counter back to 0."""
-        g = self.deployed.graph
-        self.state = StreamState.create(
-            g.tcn_steps, g.feature_channels, batch=self.batch,
-            device=self.deployed.device,
-        )
+        """Forget all history: zero ring, frame counter back to 0."""
+        self.state.ring.buf.zero_()
+        self.state.ring.cursor.zero_()
+        self.state.steps_seen.zero_()
 
     # -- state as a first-class value -------------------------------------
 
     def export_state(self) -> StreamState:
-        """The session's complete state (share/checkpoint/admit into a
-        `SessionPool` via ``pool.admit(sid, state=...)``)."""
-        return self.state
+        """A copy of the session's complete state (share/checkpoint/admit
+        into a `SessionPool` via ``pool.admit(sid, state=...)``); later
+        steps never show through it."""
+        s = self.state
+        return StreamState(
+            ring=TCNStream(buf=s.ring.buf.clone(), cursor=s.ring.cursor.clone()),
+            steps_seen=s.steps_seen.clone(),
+        )
 
     def load_state(self, state: StreamState) -> None:
-        """Resume from an exported/evicted state.  Shape-checked against
-        this session's ring geometry."""
+        """Resume from an exported/evicted state, copied into the session's
+        own tensors.  Shape-checked against this session's ring geometry."""
         expect = self.state.ring.buf.shape
         if state.ring.buf.shape != expect:
             raise ValueError(
                 f"state ring shape {tuple(state.ring.buf.shape)} != session "
                 f"{tuple(expect)}"
             )
-        self.state = state
+        self.state.ring.buf.copy_(state.ring.buf)
+        self.state.ring.cursor.copy_(state.ring.cursor)
+        self.state.steps_seen.copy_(state.steps_seen)
 
 
 # ---------------------------------------------------------------------------

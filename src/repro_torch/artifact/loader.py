@@ -112,13 +112,15 @@ class LoadedProgram:
             window = window[None]
         return self.temporal_forward(window, backend), stream
 
-    def stream(self, batch: Optional[int] = None, backend: str = "bitsim"):
-        """A `StreamSession` over the artifact's TCN ring (temporal only)."""
+    def stream(self, batch: Optional[int] = None, backend: str = "bitsim",
+               jit: bool = True):
+        """A `StreamSession` over the artifact's TCN ring (temporal only);
+        ``jit`` as in `StreamSession`."""
         from repro_torch.api.program import StreamSession
 
         if not self.info.is_temporal:
             raise ValueError(f"{self.info.name} has no TCN memory to stream into")
-        return StreamSession(self, batch=batch, backend=backend)
+        return StreamSession(self, batch=batch, backend=backend, jit=jit)
 
     def serve(self, pool_size: int, backend: str = "bitsim", **kwargs):
         """A `repro_torch.serving.SessionPool` over this loaded program —

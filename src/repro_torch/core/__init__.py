@@ -20,6 +20,7 @@ from repro_torch.core.tcn import (
     dilated_causal_conv1d,
     project_weights_to_2d,
     receptive_field,
+    stream_tcn_apply,
     unwrap_time_axis,
     wrap_time_axis,
 )

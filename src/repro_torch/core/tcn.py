@@ -180,3 +180,17 @@ class StreamState:
                                   device=device),
             steps_seen=torch.zeros((), dtype=torch.int64, device=device),
         )
+
+
+def stream_tcn_apply(stream: TCNStream, tcn_fn) -> torch.Tensor:
+    """Run a TCN head over the time-ordered buffer contents.
+
+    ``tcn_fn`` maps [B?, T, C] -> [B?, n_classes]; mirrors the silicon flow
+    where each new 2-D CNN inference triggers a full TCN pass over the
+    24-step window.  An unbatched ring ([T, C]) is run as a batch of one
+    and returns [n_classes].
+    """
+    x = stream.ordered()
+    if x.ndim == 2:
+        return tcn_fn(x[None])[0]
+    return tcn_fn(x)

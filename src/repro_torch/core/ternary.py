@@ -159,7 +159,9 @@ def clamp_threshold(t, lo: float = 0.05, hi: float = 2.0):
 # ---------------------------------------------------------------------------
 
 def _shifts(device) -> torch.Tensor:
-    return torch.tensor([0, 2, 4, 6], dtype=torch.uint8, device=device)
+    # made on the device (no host-to-device copy), so a captured CUDA graph
+    # may decode weights inside its step
+    return torch.arange(0, 8, 2, dtype=torch.uint8, device=device)
 
 
 def pack_ternary(t: torch.Tensor, axis: int = -1) -> torch.Tensor:

@@ -262,6 +262,7 @@ def ternary_conv2d_cuda(
     fn = _bind(build.load(SOURCE))
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
+        capturing = torch.cuda.is_current_stream_capturing()
         rc = fn(
             x.data_ptr(), int(x.dtype == torch.int8), w_packed.data_ptr(),
             scale.data_ptr(), threshold.data_ptr(), out.data_ptr(),
@@ -273,10 +274,17 @@ def ternary_conv2d_cuda(
             f"ternary_conv2d kernel launch refused (code {rc}) for x"
             f"{tuple(x.shape)} w{tuple(w_packed.shape)} pool={fuse_pool} {plan}"
         )
-    ternary_conv2d_cuda.launches += 1
+    if capturing:
+        ternary_conv2d_cuda.recorded += 1
+    else:
+        ternary_conv2d_cuda.launches += 1
     return out
 
 
 # Kernel launches made through the wrapper; incremented only where the kernel
-# was launched.  A run resets it to 0 and reads it to prove its path.
+# was launched.  A run resets it to 0 and reads it to prove its path.  A call
+# made while the stream is capturing a CUDA graph launches nothing: it counts
+# in ``recorded``, and the graph's owner adds the launches its graph holds to
+# ``launches`` on every replay (`repro_torch.capture.CapturedStep`).
 ternary_conv2d_cuda.launches = 0
+ternary_conv2d_cuda.recorded = 0

@@ -187,7 +187,7 @@ def serve_dvs(args) -> int:
     print(f"[serve-dvs] {stats['frames_processed']} frames in "
           f"{stats['ticks']} ticks, {wall:.2f} s -> {fps:.0f} frames/s, "
           f"mean occupancy {stats['mean_occupancy']:.2f}, "
-          f"step programs built {pool.trace_count}")
+          f"step captures/builds {pool.trace_count}")
     chance = f"untrained weights — chance is {1.0 / g.n_classes:.2f}"
     print(f"[serve-dvs] streaming accuracy {acc:.2f} "
           f"({chance if acc < 0.9 else 'vs ground-truth labels'}); "
@@ -324,7 +324,7 @@ def serve_fleet_scenario(args) -> int:
               f"built {s['pools_built']}, stepped {s['pools_traced']}, "
               f"scale{scale}, p50 {s['latency_ms_p50']:.1f} ms")
         # zero-rebuild contract: every rung's pool constructed once, and no
-        # pool ever built its step program twice
+        # pool ever built (on the card: captured) its step twice
         bad = {sz: n for sz, n in s["pools_built"].items() if n > 1}
         bad.update({sz: tc for sz, tc in s["pools_traced"].items() if tc > 1})
         if bad:
@@ -399,7 +399,9 @@ def serve_fleet_scenario(args) -> int:
     # so a --metrics-out snapshot carries the zero-rebuild and energy story
     # next to the occupancy/latency series
     m_trace = router.metrics.gauge(
-        "cutie_trace_count", "Step programs built per (net, pool rung); contract: <= 1")
+        "cutie_trace_count",
+        "Step builds per (net, pool rung): CUDA-graph captures on the card, "
+        "eager builds on the CPU; contract: <= 1")
     for name in net_names:
         for sz, tc in stats["nets"][name]["pools_traced"].items():
             m_trace.labels(net=name, pool_size=str(sz)).set(tc)

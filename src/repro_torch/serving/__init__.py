@@ -17,17 +17,20 @@ pool slot with ring state retained, wake bit-identically on an event burst,
 and `energy_summary` prices the skipped frames in uJ of the CUTIE silicon
 model.
 
-Layering: `masking` (pure state algebra) <- `pool` (mechanism) <-
+Layering: `masking` (state algebra) <- `pool` (mechanism) <-
 `gating` (host-side policy) <- `scheduler` (single-net policy) <-
 `fleet` (multi-net policy).
 """
 from repro_torch.serving.masking import (
     PoolState,
     clear_slot,
+    clear_slot_,
     gather_slot,
     masked_push,
+    masked_push_,
     ordered_windows,
     scatter_slot,
+    scatter_slot_,
 )
 from repro_torch.serving.fleet import (
     FleetQueueFull,
@@ -51,7 +54,7 @@ __all__ = [
     "ActivityGate", "GateState", "energy_summary", "frame_energy_uj",
     "FleetQueueFull", "FleetRouter", "FrameFeeder", "NetBucket", "ScaleEvent",
     "bucket_ladder", "serve_fleet",
-    "PoolState", "clear_slot", "gather_slot", "masked_push", "ordered_windows",
-    "scatter_slot", "PoolFullError", "SessionPool", "ContinuousBatcher",
-    "StreamRequest", "StreamResult",
+    "PoolState", "clear_slot", "clear_slot_", "gather_slot", "masked_push",
+    "masked_push_", "ordered_windows", "scatter_slot", "scatter_slot_",
+    "PoolFullError", "SessionPool", "ContinuousBatcher", "StreamRequest", "StreamResult",
 ]

@@ -19,7 +19,8 @@ means many tenants running *different* registry nets concurrently — the
     bucket's lifetime, so autoscaling — however often it bounces between
     sizes — builds nothing new: per (net, size) one pool object
     (``pools_built`` counts constructions) whose `trace_count` is 1 once it
-    has stepped.
+    has stepped — on the card each rung's pool captures its own CUDA graph
+    once (each graph keeps its own private memory pool).
   * **Autoscaling.**  Driven by the batcher's own occupancy/queue-depth
     stats: demand = in-flight + admissible queued.  Grow doubles along the
     ladder until demand fits (capped); shrink waits ``shrink_after``
@@ -30,8 +31,9 @@ means many tenants running *different* registry nets concurrently — the
   * **Async host-side ingestion.**  The deploy step is a pure function of
     ring state, so host ingestion and device compute pipeline cleanly: a
     `FrameFeeder` thread assembles the NEXT tick's `[P, H, W, C]` frame
-    batch into host double buffers (numpy; the thread makes no CUDA call)
-    while the card executes the current step.  Falls back to synchronous
+    batch into host double buffers (pinned when the program lies on the
+    card; the thread makes no CUDA call) while the card executes the
+    current step.  Falls back to synchronous
     assembly when threads are unavailable (``ingest="sync"``, or a failed
     thread spawn) — results are bit-identical either way (tested).
   * **Admission overflow -> bounded FIFO.**  A full pool spills arrivals
@@ -68,6 +70,7 @@ from concurrent.futures import Future, ThreadPoolExecutor
 from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from repro_torch.obs.metrics import MetricsRegistry
 from repro_torch.obs.tracer import NULL_TRACER
@@ -130,27 +133,35 @@ class FrameFeeder:
     pipelining is invisible to the numerics (async == sync bit-identical,
     tested in tests/test_torch_fleet.py).
 
-    The buffers are plain numpy and the thread only fills them: it makes
-    no CUDA call.  `SessionPool.step_prepared` copies a buffer to the card
-    synchronously, so once a step has been enqueued its buffer is free —
-    the refill two ticks later can never overwrite a copy in flight.
+    With ``pin_memory=True`` (a bucket whose program lies on the card)
+    the buffers are pinned host tensors, allocated on the calling (main)
+    thread, and the thread fills their numpy views: it makes no CUDA call.
+    `SessionPool.step_prepared` copies a pinned buffer to the card without
+    blocking and records an event (`SessionPool.last_upload`), which the
+    batcher hands back through `copied`; before a buffer is given out for
+    refilling, `prefetch` waits on that event, so no host buffer is
+    rewritten while a copy from it is in flight.  Without pinning the
+    buffers are plain numpy and the copy is synchronous.
 
     ``mode``: "thread" (require a thread; fall back to sync only if spawn
     fails), "sync" (always inline), "auto" (try thread, fall back quietly).
     """
 
-    def __init__(self, mode: str = "auto"):
+    def __init__(self, mode: str = "auto", pin_memory: bool = False):
         if mode not in ("auto", "thread", "sync"):
             raise ValueError(f"unknown ingest mode {mode!r}")
+        self.pin_memory = pin_memory
         self._executor: Optional[ThreadPoolExecutor] = None
         if mode != "sync":
             self._executor = ThreadPoolExecutor(
                 max_workers=1, thread_name_prefix="cutie-feeder"
             )
         self._pending: Optional[Future] = None
-        # pool_size -> ([(batch, active) x 2], flip index): the double
-        # buffers, one pair per ladder size the bucket visits
+        # (pool_size, frame_shape) -> ([_HostBatch x 2], flip index): the
+        # double buffers, one pair per ladder size the bucket visits
         self._bufs: Dict[Tuple[int, Tuple[int, ...]], list] = {}
+        self._filling: Optional[_HostBatch] = None  # the buffer `_pending` fills
+        self._taken: Optional[_HostBatch] = None    # handed out by `take`
         self._threaded = self._executor is not None
         # fill spans carry no track, so they land on the lane of the
         # thread that ran the fill — the cutie-feeder thread when threaded
@@ -169,21 +180,27 @@ class FrameFeeder:
         """False once running in sync-fallback mode."""
         return self._threaded
 
-    def _buffers(self, pool_size: int, frame_shape: Tuple[int, ...]):
+    def _buffers(self, pool_size: int, frame_shape: Tuple[int, ...]) -> "_HostBatch":
         key = (pool_size, tuple(frame_shape))
         entry = self._bufs.get(key)
         if entry is None:
-            pair = [
-                (
-                    np.zeros((pool_size, *frame_shape), np.float32),
-                    np.zeros((pool_size,), bool),
-                )
-                for _ in range(2)
-            ]
+            pair = [_HostBatch(pool_size, frame_shape, self.pin_memory) for _ in range(2)]
             entry = self._bufs[key] = [pair, 0]
         pair, flip = entry
         entry[1] = flip ^ 1
-        return pair[flip]
+        buf = pair[flip]
+        if buf.copied is not None:
+            buf.copied.synchronize()  # its last copy to the card has landed
+            buf.copied = None
+        return buf
+
+    def copied(self, event) -> None:
+        """Attach the event of the copy from the buffer `take` handed out
+        (`SessionPool.last_upload`; None for a synchronous copy): that
+        buffer is refilled only once the event has completed."""
+        if self._taken is not None:
+            self._taken.copied = event
+            self._taken = None
 
     def _fill(self, batch: np.ndarray, active: np.ndarray, items):
         with self.tracer.span("feeder.fill", streams=len(items)):
@@ -201,7 +218,8 @@ class FrameFeeder:
         slot, clip, frame_index), ...] into the back buffer — on the
         feeder thread when available, inline otherwise."""
         self.invalidate()  # at most one prefetch outstanding
-        batch, active = self._buffers(pool_size, frame_shape)
+        buf = self._filling = self._buffers(pool_size, frame_shape)
+        batch, active = buf.batch, buf.active
         if self._executor is not None:
             try:
                 self._pending = self._executor.submit(
@@ -220,11 +238,13 @@ class FrameFeeder:
     def take(self):
         """The prefetched (batch, active, covered) triple, or None when no
         prefetch is outstanding (first tick, or after `invalidate`)."""
+        self._taken = None
         if self._pending is None:
             return None
         with self.tracer.span("feeder.consume", track=self.track):
             result = self._pending.result()
         self._pending = None
+        self._taken = self._filling
         return result
 
     def invalidate(self) -> None:
@@ -242,6 +262,24 @@ class FrameFeeder:
         if self._executor is not None:
             self._executor.shutdown(wait=True)
             self._executor = None
+
+
+class _HostBatch:
+    """One of a feeder's double buffers: the ``(batch, active)`` numpy
+    arrays the fill writes — views of pinned tensors when pinned — and the
+    event of the last copy from them to the card still to be waited on."""
+
+    def __init__(self, pool_size: int, frame_shape: Tuple[int, ...], pin: bool):
+        shapes = ((pool_size, *frame_shape), (pool_size,))
+        if pin:
+            self.pinned = (torch.zeros(shapes[0], dtype=torch.float32, pin_memory=True),
+                           torch.zeros(shapes[1], dtype=torch.bool, pin_memory=True))
+            self.batch, self.active = (t.numpy() for t in self.pinned)
+        else:
+            self.pinned = None
+            self.batch = np.zeros(shapes[0], np.float32)
+            self.active = np.zeros(shapes[1], bool)
+        self.copied = None
 
 
 class NetBucket:
@@ -284,7 +322,9 @@ class NetBucket:
         self.pools: Dict[int, SessionPool] = {}
         # rung -> SessionPool constructions: the zero-rebuild audit (1 each)
         self.pools_built: Dict[int, int] = {}
-        self.feeder = FrameFeeder(mode=ingest) if ingest != "off" else None
+        self.feeder = FrameFeeder(
+            mode=ingest, pin_memory=torch.device(program.device).type == "cuda",
+        ) if ingest != "off" else None
         # the bucket's routing key is the export lane: every tick / gate /
         # step span of this bucket lands on one named Perfetto track
         self.batcher = ContinuousBatcher(
@@ -406,9 +446,9 @@ class NetBucket:
 
     def stats(self) -> Dict:
         """The batcher's stats plus bucket-level serving state: current
-        rung, per-rung step-program builds and pool constructions (the
-        zero-rebuild audit), scale events, per-rung latency percentiles,
-        and the ingestion mode."""
+        rung, per-rung step builds (``pools_traced``: CUDA-graph captures
+        on the card) and pool constructions (the zero-rebuild audit), scale
+        events, per-rung latency percentiles, and the ingestion mode."""
         s = self.batcher.stats()
         s.update(
             net=self.name,

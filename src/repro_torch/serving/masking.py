@@ -3,10 +3,16 @@ Counterpart of `repro.serving.masking`.
 
 A **fixed-shape** batched ring state ``[P, T, C]`` where P is the pool size.
 Streams come and go mid-flight, so every slot carries its own write cursor
-and its own monotonic step counter.  Everything here is functional (a new
-`PoolState` is returned, the old one is untouched), shape-stable, and stays
-on the state's device: admission, eviction and masking are data (the
+and its own monotonic step counter.  Everything here is shape-stable and
+stays on the state's device: admission, eviction and masking are data (the
 ``active`` mask), never shapes, and nothing waits for the device.
+
+Each operation comes twice.  The functional form (`masked_push`,
+`scatter_slot`, `clear_slot`) returns a new `PoolState` and leaves the old
+one untouched — the reference's API.  The in-place form (`masked_push_`,
+`scatter_slot_`, `clear_slot_`) writes the same values into the existing
+tensors, so the state keeps its addresses: that is what `SessionPool` runs,
+because its captured step reads and writes the state at fixed addresses.
 
 Slot surgery (`gather_slot` / `scatter_slot` / `clear_slot`) converts
 between the pooled state and the single-stream `StreamState` that
@@ -68,6 +74,11 @@ def masked_push(state: PoolState, feats: torch.Tensor, active: torch.Tensor) -> 
     )
 
 
+def masked_push_(state: PoolState, feats: torch.Tensor, active: torch.Tensor) -> None:
+    """`masked_push` written into ``state``'s own tensors."""
+    _assign(state, masked_push(state, feats, active))
+
+
 def ordered_windows(state: PoolState) -> torch.Tensor:
     """[P, T, C] time-ordered (oldest-first) view per slot — what the TCN
     head consumes.  The per-slot roll by the per-slot cursor is a gather
@@ -92,14 +103,19 @@ def gather_slot(state: PoolState, slot: int) -> StreamState:
     )
 
 
+def _assign(state: PoolState, new: PoolState) -> None:
+    state.buf.copy_(new.buf)
+    state.cursor.copy_(new.cursor)
+    state.steps.copy_(new.steps)
+
+
 def _with_slot(t: torch.Tensor, slot: int, value) -> torch.Tensor:
     out = t.clone()
     out[slot] = value
     return out
 
 
-def scatter_slot(state: PoolState, slot: int, stream: StreamState) -> PoolState:
-    """Place a StreamState into slot ``slot`` (batch-free states only)."""
+def _check_fits(state: PoolState, stream: StreamState) -> None:
     if stream.ring.buf.ndim != 2:
         raise ValueError(
             "only batch-free StreamStates scatter into a pool slot; got ring "
@@ -110,6 +126,11 @@ def scatter_slot(state: PoolState, slot: int, stream: StreamState) -> PoolState:
             f"ring shape {tuple(stream.ring.buf.shape)} does not fit pool slots "
             f"{tuple(state.buf.shape[1:])}"
         )
+
+
+def scatter_slot(state: PoolState, slot: int, stream: StreamState) -> PoolState:
+    """Place a StreamState into slot ``slot`` (batch-free states only)."""
+    _check_fits(state, stream)
     dev = state.buf.device
     return PoolState(
         buf=_with_slot(state.buf, slot, stream.ring.buf.to(dev, state.buf.dtype)),
@@ -125,3 +146,18 @@ def clear_slot(state: PoolState, slot: int) -> PoolState:
         cursor=_with_slot(state.cursor, slot, 0),
         steps=_with_slot(state.steps, slot, 0),
     )
+
+
+def scatter_slot_(state: PoolState, slot: int, stream: StreamState) -> None:
+    """`scatter_slot` written into ``state``'s own tensors."""
+    _check_fits(state, stream)
+    state.buf[slot].copy_(stream.ring.buf)
+    state.cursor[slot].copy_(stream.ring.cursor)
+    state.steps[slot].copy_(stream.steps_seen)
+
+
+def clear_slot_(state: PoolState, slot: int) -> None:
+    """`clear_slot` written into ``state``'s own tensors."""
+    state.buf[slot].zero_()
+    state.cursor[slot].zero_()
+    state.steps[slot].zero_()

@@ -7,16 +7,24 @@ fixed-shape step.  Counterpart of `repro.serving.pool`.
     state = pool.evict("sensor-a")          # slot free, refill next tick
     pool.admit("sensor-c")                  # shapes unchanged
 
-Key properties (tested in tests/test_torch_serving.py):
+Key properties (tested in tests/test_torch_serving.py and
+tests/test_torch_serving_static.py):
 
-  * **Fixed shape, one step program.**  Every tick runs the same
-    ``[P, H, W, C]`` batch through the same kernels; admit / evict /
-    partial ticks are data (the ``active`` mask and the frame batch), never
-    shapes.  The pool builds its step program once, at its first step, and
-    reuses it for its whole life; `trace_count` counts those builds (the
-    reference's jit trace count: 0 before the first step, 1 after, never
-    more).  The step runs eagerly; capturing it as a CUDA graph is not
-    done yet.
+  * **Fixed shape, one step — captured once on the card.**  Every tick
+    runs the same ``[P, H, W, C]`` batch through the same kernels; admit /
+    evict / partial ticks are data (the ``active`` mask and the frame
+    batch), never shapes.  The pool owns static device tensors — the frame
+    batch, the ``active`` mask, the `PoolState` — and every tick and every
+    slot operation writes into them in place, so they keep their addresses
+    for the pool's life.  On a CUDA device with ``jit=True`` (the default)
+    the first tick runs the step eagerly and then captures it as a CUDA
+    graph (`repro_torch.capture.CapturedStep`, the counterpart of the
+    reference's ``jax.jit``); every later tick copies the batch in and
+    replays the graph.  On the CPU, or with ``jit=False``, the step runs
+    eagerly every tick.  `trace_count` counts captures on the card and
+    step builds elsewhere: 0 before the first step, 1 after, never more.
+    A capture or replay that fails raises; ``jit=False`` is the only way to
+    the eager step on the card.
   * **Bit-exact per stream.**  Each slot's logits equal an independent
     `StreamSession` fed the same frames, on every backend.
   * **Migratable sessions.**  `evict` returns the stream's `StreamState`;
@@ -33,6 +41,11 @@ backend)``, a ``.device`` and a ``.graph`` with ``name`` / ``is_temporal`` /
 `DeployedProgram`, or a `repro_torch.artifact.LoadedProgram` whose ``.graph``
 is the artifact's `ProgramInfo` header.
 
+Frames reach the card from host memory: a batch in pinned memory (the
+fleet feeder's double buffers) is copied without blocking and an event
+marks when the copy is done (`last_upload`); any other batch is copied
+synchronously.  `step_prepared` returns a new logits tensor every tick.
+
 ``sharding`` is accepted for the reference's signature and is a no-op on
 one device (``None``, ``False``, ``True``, ``"auto"`` or ``1``); laying the
 pool axis across several cards is not ported.
@@ -44,15 +57,16 @@ from typing import Dict, List, Mapping, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.capture import CapturedStep
 from repro_torch.core.tcn import StreamState
 from repro_torch.obs.tracer import NULL_TRACER
 from repro_torch.serving.masking import (
     PoolState,
-    clear_slot,
+    clear_slot_,
     gather_slot,
-    masked_push,
+    masked_push_,
     ordered_windows,
-    scatter_slot,
+    scatter_slot_,
 )
 
 
@@ -72,14 +86,14 @@ class SessionPool:
     """Fixed-shape multi-stream serving state over one `DeployedProgram`.
 
     The pool owns a slot-masked `PoolState` (``[P, T, C]`` ring + per-slot
-    cursors) on the program's device and one step: CNN frontend on the full
-    ``[P, H, W, C]`` frame batch -> masked ring push -> TCN head on the
-    ``[P, T, C]`` ordered windows.  Slot bookkeeping (which stream sits
-    where) is plain host-side Python.
+    cursors), a ``[P, H, W, C]`` frame batch and a ``[P]`` active mask on
+    the program's device, and one step: CNN frontend on the frame batch ->
+    masked ring push -> TCN head on the ``[P, T, C]`` ordered windows.
+    Slot bookkeeping (which stream sits where) is plain host-side Python.
     """
 
     def __init__(self, deployed, pool_size: int, backend: str = "fused",
-                 sharding=None, tracer=None):
+                 jit: bool = True, sharding=None, tracer=None):
         from repro_torch.api.program import check_backend
 
         check_backend(backend)
@@ -97,35 +111,33 @@ class SessionPool:
         self.deployed = deployed
         self.pool_size = pool_size
         self.backend = backend
+        self.jit = jit
         self.device = deployed.device
         g = deployed.graph
         self.frame_shape: Tuple[int, ...] = (*g.input_hw, g.input_ch)
+        # the static tensors the step reads and writes in place
         self.state = PoolState.create(
             pool_size, g.tcn_steps, g.feature_channels, device=self.device
         )
+        self._frames = torch.zeros((pool_size, *self.frame_shape),
+                                   dtype=torch.float32, device=self.device)
+        self._active = torch.zeros((pool_size,), dtype=torch.bool, device=self.device)
+        self._step = CapturedStep(self._run_step, self.device, capture=jit)
+        # the event after the last non-blocking upload (None: it was synchronous)
+        self.last_upload: Optional[torch.cuda.Event] = None
         self._slots: List[Optional[str]] = [None] * pool_size
         self._slot_of: Dict[str, int] = {}
-        self._step = None
-        self._trace_count = 0
         # observability: NULL_TRACER when tracing is off (no-op span, no
         # branch in the hot path); spans wrap the step from the outside
         self.tracer = tracer if tracer is not None else NULL_TRACER
         self.track = getattr(deployed.graph, "name", "pool")
 
-    def _build_step(self):
-        """The pool's one step program: CNN frontend -> masked ring push ->
-        TCN head, bound to this pool's program and backend.  Built at the
-        first step, counted in `trace_count`, never rebuilt."""
-        self._trace_count += 1
-        deployed, backend = self.deployed, self.backend
-
-        def step(state: PoolState, frames: torch.Tensor, active: torch.Tensor):
-            feats = deployed.spatial_forward(frames, backend)
-            new = masked_push(state, feats, active)
-            logits = deployed.temporal_forward(ordered_windows(new), backend)
-            return logits, new
-
-        return step
+    def _run_step(self) -> torch.Tensor:
+        """The pool's one step over its static tensors: CNN frontend ->
+        masked ring push (in place) -> TCN head.  Returns the logits."""
+        feats = self.deployed.spatial_forward(self._frames, self.backend)
+        masked_push_(self.state, feats, self._active)
+        return self.deployed.temporal_forward(ordered_windows(self.state), self.backend)
 
     # -- admission control -------------------------------------------------
 
@@ -145,9 +157,9 @@ class SessionPool:
                 f"all {self.pool_size} slots busy; evict before admitting"
             ) from None
         if state is None:
-            self.state = clear_slot(self.state, slot)
+            clear_slot_(self.state, slot)
         else:
-            self.state = scatter_slot(self.state, slot, state)
+            scatter_slot_(self.state, slot, state)
         self._slots[slot] = stream_id
         self._slot_of[stream_id] = slot
         return slot
@@ -163,7 +175,7 @@ class SessionPool:
     def reset(self, stream_id: str) -> None:
         """Per-slot reset: zero this stream's ring and age, leaving every
         other slot untouched."""
-        self.state = clear_slot(self.state, self._slot_of[self._require(stream_id)])
+        clear_slot_(self.state, self._slot_of[self._require(stream_id)])
 
     def _require(self, stream_id: str) -> str:
         if stream_id not in self._slot_of:
@@ -174,14 +186,27 @@ class SessionPool:
 
     # -- the hot path ------------------------------------------------------
 
-    def prepare(self, frames: Mapping[str, object]) -> Tuple[np.ndarray, np.ndarray]:
+    def prepare(
+        self,
+        frames: Mapping[str, object],
+        out_batch: Optional[np.ndarray] = None,
+        out_active: Optional[np.ndarray] = None,
+    ) -> Tuple[np.ndarray, np.ndarray]:
         """Host-side batch assembly: slot-scatter ``frames`` (numpy arrays
         or tensors) into a ``[P, *frame_shape]`` float32 batch and a ``[P]``
-        bool active mask.  Pure numpy, no device work."""
+        bool active mask.  Pure numpy, no device work.  ``out_batch`` /
+        ``out_active`` reuse caller-owned buffers (the feeder's pinned
+        double buffers) instead of allocating."""
         for sid in frames:
             self._require(sid)
-        batch = np.zeros((self.pool_size, *self.frame_shape), np.float32)
-        active = np.zeros((self.pool_size,), bool)
+        if out_batch is None:
+            out_batch = np.zeros((self.pool_size, *self.frame_shape), np.float32)
+        else:
+            out_batch.fill(0.0)
+        if out_active is None:
+            out_active = np.zeros((self.pool_size,), bool)
+        else:
+            out_active.fill(False)
         for sid, f in frames.items():
             f = host_frame(f)
             if f.shape == (1, *self.frame_shape):
@@ -190,27 +215,41 @@ class SessionPool:
                 raise ValueError(
                     f"stream {sid!r}: frame shape {f.shape} != {self.frame_shape}"
                 )
-            batch[self._slot_of[sid]] = f
-            active[self._slot_of[sid]] = True
-        return batch, active
+            out_batch[self._slot_of[sid]] = f
+            out_active[self._slot_of[sid]] = True
+        return out_batch, out_active
+
+    def _upload(self, batch, active) -> None:
+        """Copy a host ``(batch, active)`` pair into the static device
+        inputs: without blocking from pinned memory (recording
+        `last_upload`), synchronously otherwise."""
+        src_b, src_a = torch.as_tensor(batch), torch.as_tensor(active)
+        if tuple(src_b.shape) != tuple(self._frames.shape) or tuple(src_a.shape) != (
+                self.pool_size,):
+            raise ValueError(
+                f"batch {tuple(src_b.shape)} / active {tuple(src_a.shape)} do not "
+                f"fit the pool's {tuple(self._frames.shape)} / ({self.pool_size},)"
+            )
+        pinned = (self.device.type == "cuda" and src_b.is_pinned()
+                  and src_a.is_pinned())
+        self._frames.copy_(src_b, non_blocking=pinned)
+        self._active.copy_(src_a, non_blocking=pinned)
+        self.last_upload = None
+        if pinned:
+            self.last_upload = torch.cuda.Event()
+            self.last_upload.record()
 
     def step_prepared(self, batch: np.ndarray, active: np.ndarray) -> torch.Tensor:
         """The device half of a tick: copy an assembled ``(batch, active)``
-        pair (see `prepare`) to the pool's device, run the step, and return
-        the full ``[P, n_classes]`` logits there — callers map slots back
-        to stream ids.  The copies from the host buffers are synchronous
-        (pageable memory, ``non_blocking=False``): when this returns the
-        buffers have been read, so a feeder may refill them at once."""
-        if self._step is None:
-            self._step = self._build_step()
+        pair (see `prepare`) into the static inputs, run the step (a graph
+        replay once captured), and return the full ``[P, n_classes]``
+        logits on the device as a new tensor — callers map slots back to
+        stream ids.  A pageable host buffer has been read when this
+        returns; a pinned one once `last_upload` has completed."""
         with self.tracer.span("pool.step", track=self.track,
                               pool_size=self.pool_size):
-            logits, self.state = self._step(
-                self.state,
-                torch.from_numpy(batch).to(self.device),
-                torch.from_numpy(active).to(self.device),
-            )
-        return logits
+            self._upload(batch, active)
+            return self._step()
 
     def step(self, frames: Mapping[str, object]) -> Dict[str, torch.Tensor]:
         """One pool tick.  ``frames`` maps stream id -> ``[H, W, C]`` frame
@@ -257,10 +296,18 @@ class SessionPool:
 
     @property
     def trace_count(self) -> int:
-        """How many times this pool built its step program: 0 before the
-        first step, then 1 for the pool's whole life — the continuous-
-        batching contract (admit / evict / partial ticks never rebuild)."""
-        return self._trace_count
+        """How many times this pool built its step: captures of the CUDA
+        graph on the card (``jit=True``), eager step builds on the CPU or
+        with ``jit=False``.  0 before the first step, then 1 for the pool's
+        whole life — the continuous-batching contract (admit / evict /
+        partial ticks / migration never rebuild)."""
+        return self._step.builds
+
+    @property
+    def captured(self) -> bool:
+        """True once the step is a captured CUDA graph (``jit=True`` on the
+        card, after the first step)."""
+        return self._step.captured
 
     def __contains__(self, stream_id: str) -> bool:
         return stream_id in self._slot_of
@@ -271,6 +318,6 @@ class SessionPool:
     def __repr__(self) -> str:
         return (
             f"SessionPool(size={self.pool_size}, backend={self.backend!r}, "
-            f"device={str(self.device)!r}, active={len(self._slot_of)}, "
+            f"device={str(self.device)!r}, jit={self.jit}, active={len(self._slot_of)}, "
             f"occupancy={self.occupancy:.2f})"
         )

@@ -16,10 +16,12 @@ streams — so a departing stream's slot is refilled on the very next tick.
 Ticks are logical time: a request with ``arrival=k`` is admissible from
 tick k onward.  The batcher records per-tick occupancy and per-tick host
 latency (tagged with the pool size it ran at).  On a CUDA pool a tick only
-*enqueues* device work, apart from two waits: the frame batch is copied to
-the card synchronously, and where streams depart their logits reach the
-host in ONE device-to-host copy per tick — so a tick's host latency is
-enqueue time plus those waits.
+*enqueues* device work — the frame batch's copy, one replay of the pool's
+captured step, one copy of its logits — apart from two waits: a batch in
+pageable memory is copied to the card synchronously (a fleet feeder's
+pinned batch is not), and where streams depart their logits reach the host
+in ONE device-to-host copy per tick — so a tick's host latency is enqueue
+time plus those waits.
 
 Fleet hooks (used by `repro_torch.serving.fleet`, inert otherwise):
 
@@ -49,9 +51,9 @@ its wall-clock spans around work on the card measure enqueue time.
 ``metrics`` (a `repro_torch.obs.MetricsRegistry`) keeps the always-on
 occupancy, queue, frame and tick-latency series.
 
-Not carried over yet from the reference: the CUDA-graph capture of the
-pool step and laying a pool across several cards (``--shard``).  The
-tracer's events render for Chrome/Perfetto through `repro_torch.obs.export`.
+Not carried over yet from the reference: laying a pool across several
+cards (``--shard``).  The tracer's events render for Chrome/Perfetto
+through `repro_torch.obs.export`.
 """
 from __future__ import annotations
 
@@ -278,9 +280,10 @@ class ContinuousBatcher:
 
     def swap_pool(self, new_pool: SessionPool) -> SessionPool:
         """Migrate every in-flight stream into ``new_pool`` (evict with
-        state -> admit with state: bit-identical from then on) and make it
-        the batcher's pool.  Returns the old pool — the caller (the fleet
-        bucket) caches it, so scaling back to that size builds nothing.
+        state -> admit with state, written into the new pool's state in
+        place: bit-identical from then on) and make it the batcher's pool.
+        Returns the old pool — the caller (the fleet bucket) caches it, so
+        scaling back to that size builds and captures nothing.
         Raises ValueError when the in-flight streams don't fit."""
         if new_pool is self.pool:
             return self.pool
@@ -509,6 +512,8 @@ class ContinuousBatcher:
                 batch, active = self._assemble()
             with tr.span("step", track=track, streams=len(stepping)):
                 logits = self.pool.step_prepared(batch, active)
+            if self.feeder is not None:
+                self.feeder.copied(self.pool.last_upload)
             slots = {sid: self.pool.slot_of(sid) for sid in stepping}
             out = {sid: logits[slot] for sid, slot in slots.items()}
             for sid in stepping:
