@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU: `python3 chip_smoke.py`.
 
-Drives the port's three paths on the card, each through the entry points a
+Drives the port's paths on the card, each through the entry points a
 user calls, and holds every hand-written kernel against its plain PyTorch
 version.  It imports `repro_torch` only.
 
@@ -30,7 +30,15 @@ version.  It imports `repro_torch` only.
     flash backward, the chunked CE, the layer remat, AdamW in place), the
     SMOKE configs' train steps on the card against the CPU, and ``python -m
     repro_torch.launch.train_lm`` with a resume.  It launches neither K1
-    nor K2 either.
+    nor K2 either;
+  * the dry-run — `repro_torch.launch.dryrun.run_cell` on full-width cells of
+    the (16, 16) production mesh (FLOPs and bytes per device from meta
+    tensors, held to this card's memory), and two cells held against the
+    card itself on a (1, 1) mesh.  No K1, no K2;
+  * the pool laid across devices — full-width ``dvs_cnn_tcn`` served through
+    a `SessionPool` split into two blocks on this card (`PoolSharding`),
+    each block its own captured step (kernel K1), and the launcher's
+    ``--dvs --shard``.
 
 Phases (any failure ends the run with a non-zero exit code and no result
 line):
@@ -149,7 +157,33 @@ line):
                 after) and again to 30 steps: exit 0, the ``[train]`` lines,
                 "resumed from step 20".  K1 and K2 launch 0 times.  Prints
                 the ``lm_train`` JSON line
-  10. result    the ``kernels`` JSON line (each kernel's time beside its
+  10. dryrun    `run_cell` (``force``, artifacts under ``build/dryrun_torch``)
+                for ``gemma-2b`` x {``train_4k``, ``decode_32k``},
+                ``deepseek-v2-lite-16b`` x ``decode_32k`` and ``mamba2-370m``
+                x ``long_500k`` on ``pod16x16``: status ok; prints FLOPs,
+                argument and temp bytes per device, fits on this card's
+                memory, trace seconds.  On a (1, 1) mesh of this card,
+                full-width ``gemma-2b`` decode (batch 4, 2048-token cache)
+                and a ``gemma-2b`` SMOKE train step (4 x 64): the dry-run's
+                argument bytes == the allocation's growth up to the caching
+                allocator's rounding (512-byte blocks, and up to 1 MiB more
+                for each argument over 1 MiB), its FLOPs == `FlopCounterMode`
+                on the card's tensors exactly, its temp bytes >= the peak
+                growth over one real step after a warm-up one (an upper
+                bound; the ratio is printed).  K1 and K2 launch 0 times.
+                Prints the ``dryrun`` JSON line
+  11. shard     full-width ``dvs_cnn_tcn``, pool 8, ``fused``, captured, in
+                two blocks on this card (`PoolSharding([cuda:0, cuda:0])`,
+                the code two cards run) against the plain captured pool over
+                12 ticks of admissions, evictions across the block boundary
+                and partial ticks: logits and evicted states bit-equal,
+                `trace_count` 2 (one capture per block) after every tick, 18
+                K1 launches per tick (9 per block, counted on the replays).
+                Host ms/tick of both pools, every slot busy, in turns (plain,
+                split, split, plain; 3 rounds of 40 ticks).  ``python -m
+                repro_torch.launch.serve --dvs --shard`` exits 0 and prints
+                ``shard=False`` (one card).  Prints the ``shard`` JSON line
+  12. result    the ``kernels`` JSON line (each kernel's time beside its
                 bound, plain version and library yardstick, all from this
                 run), the card line, and the last line
                 ``{"ok": true, "device": {...}}``
@@ -253,6 +287,19 @@ LM_TRAIN_SMOKE_SHAPE = (4, 16)   # batch, seq
 LM_TRAIN_SMOKE_OPT = {"lr": 1e-3, "warmup_steps": 2, "total_steps": 10}
 LM_TRAIN_SMOKE_TOL = {"metrics": 1e-5, "grad_norm": 1e-4, "m_rtol": 1e-3, "m_atol": 1e-5}
 LM_TRAIN_LAUNCH = ("mamba2-370m", 20, 30, 10)
+
+# the dry-run: full-width cells on the (16, 16) production mesh (dense train
+# and decode, an MoE model's MLA cache, an SSM's cache sequence over every
+# axis); the cells held against the card on a (1, 1) mesh of this card: a
+# full-width decode step at batch 4 against a 2048-token cache and a SMOKE
+# train step
+DRYRUN_CELLS = (("gemma-2b", "train_4k"), ("gemma-2b", "decode_32k"),
+                ("deepseek-v2-lite-16b", "decode_32k"), ("mamba2-370m", "long_500k"))
+DRYRUN_DECODE = ("gemma-2b", 2048, 4)       # arch, cache length, batch
+DRYRUN_TRAIN = ("gemma-2b", 64, 4)          # SMOKE arch, seq, batch
+
+# the split pool: full-width dvs_cnn_tcn, pool 8, in two blocks on this card
+SHARD_BLOCKS = 2
 
 # (name, H, W, C_in, C_out, K, pool, input dtype) — the nine launches of one
 # pool tick of dvs_cnn_tcn (5 conv + 4 TCN layers; TCN maps carry the extra
@@ -1836,6 +1883,237 @@ def lm_train_path(dev):
     return out
 
 
+def _dryrun_vs_card(cfg, shape, dev):
+    """One cell built by the dry-run on a (1, 1) mesh of this card, run on
+    meta tensors and on zero tensors on the card: the argument bytes
+    against the allocation's growth, the FLOP counts, and the temp bytes
+    against the peak growth over one real step (after a warm-up step)."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.tree import tree_leaves, tree_map
+
+    mesh = make_local_mesh(dev)
+    step, args, shardings, _donate, rules = dryrun.build_cell(cfg, shape, mesh)
+    arg_bytes = dryrun.tree_bytes(args, shardings)
+    flops_meta = dryrun.count_flops(step, args)
+    t0 = time.perf_counter()
+    temp = dryrun.peak_temp_bytes(step, dryrun.local_args(args, shardings, rules))
+    trace_s = time.perf_counter() - t0
+
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    real = tree_map(lambda x: torch.zeros(x.shape, dtype=x.dtype, device=dev), args)
+    torch.cuda.synchronize()
+    growth = torch.cuda.memory_allocated() - before
+    # the caching allocator may book more than a request: 512-byte blocks,
+    # and up to 1 MiB more for a block it leaves unsplit
+    sizes = [x.numel() * x.element_size() for x in tree_leaves(args)]
+    slack = sum(dryrun.booked_bytes(n) - n for n in sizes)
+    if not 0 <= growth - arg_bytes <= slack:
+        fail(f"dryrun {cfg.name} {shape.kind}: argument_bytes {arg_bytes} but allocating "
+             f"the {len(sizes)} arguments grew memory by {growth} (bound: {slack} bytes "
+             f"of allocator rounding)")
+    flops_card = dryrun.count_flops(step, real)       # also the warm-up step
+    if flops_card != flops_meta:
+        fail(f"dryrun {cfg.name} {shape.kind}: {flops_meta} FLOPs on meta tensors, "
+             f"{flops_card} on the card")
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = step(*real)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    del out, real
+    torch.cuda.empty_cache()
+    if temp < peak:
+        fail(f"dryrun {cfg.name} {shape.kind}: temp_bytes {temp} below the card's peak "
+             f"growth {peak} over one step (an upper bound may only err high)")
+    return {"arch": cfg.name, "kind": shape.kind, "batch": shape.global_batch,
+            "seq": shape.seq_len, "argument_bytes": arg_bytes,
+            "allocated_growth": growth, "rounding_bound": slack, "flops": flops_meta, "flops_card": flops_card,
+            "temp_bytes": temp, "peak_step_growth": peak, "temp_over_peak": temp / peak,
+            "trace_s": trace_s}
+
+
+def dryrun_path(dev):
+    """Phase 10: the dry-run.  Full-width cells on the (16, 16) production
+    mesh through `run_cell` (FLOPs and bytes per device, fits against this
+    card's memory), then two cells held against the card on a (1, 1) mesh.
+    It launches neither K1 nor K2."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.ternary_conv2d import ternary_conv2d_cuda
+    from repro_torch.kernels.ternary_matmul import ternary_matmul_cuda
+    from repro_torch.launch import dryrun
+    from repro_torch.models.config import ShapeConfig
+
+    t_phase = time.perf_counter()
+    ternary_conv2d_cuda.launches = 0
+    ternary_matmul_cuda.launches = 0
+    out = {"cells": [], "vs_card": []}
+    for arch, shape in DRYRUN_CELLS:
+        r = dryrun.run_cell(arch, shape, device=dev, force=True,
+                            out_dir=REPO / "build" / "dryrun_torch")
+        if r["status"] != "ok":
+            fail(f"dryrun {arch} x {shape}: {r.get('error')}\n{r.get('traceback', '')}")
+        mem = r["memory_analysis"]
+        cell = {"arch": arch, "shape": shape, "mesh": r["mesh"], "flops": r["flops"],
+                "argument_bytes": mem["argument_bytes"], "temp_bytes": mem["temp_bytes"],
+                "output_bytes": mem["output_bytes"], "alias_bytes": mem["alias_bytes"],
+                "hbm_bytes": r["device"]["hbm_bytes"], "fits": r["fits"],
+                "trace_s": r["trace_s"]}
+        out["cells"].append(cell)
+        print(f"[chip_smoke] dryrun: {arch} x {shape} x {r['mesh']}: "
+              f"{r['flops']:.4e} FLOPs/device, arguments "
+              f"{mem['argument_bytes'] / 2**30:.3f} GiB + temp {mem['temp_bytes'] / 2**30:.3f} "
+              f"GiB/device (upper bound), fits {r['device']['name']} "
+              f"({r['device']['hbm_bytes'] / 2**30:.2f} GiB): {r['fits']}; "
+              f"trace {r['trace_s']:.1f} s", flush=True)
+
+    arch, cache_len, batch = DRYRUN_DECODE
+    arch_t, seq, batch_t = DRYRUN_TRAIN
+    for cfg, shape in ((get_config(arch), ShapeConfig("decode", cache_len, batch, "decode")),
+                       (get_config(arch_t, smoke=True),
+                        ShapeConfig("train", seq, batch_t, "train"))):
+        c = _dryrun_vs_card(cfg, shape, dev)
+        out["vs_card"].append(c)
+        print(f"[chip_smoke] dryrun: {c['arch']} {c['kind']} {c['batch']}x{c['seq']} on a "
+              f"(1, 1) mesh: argument_bytes {c['argument_bytes']} vs allocated "
+              f"{c['allocated_growth']} (rounding bound {c['rounding_bound']}); FLOPs "
+              f"{c['flops']} == card {c['flops_card']}; temp_bytes {c['temp_bytes']} >= "
+              f"peak step growth {c['peak_step_growth']} (ratio "
+              f"{c['temp_over_peak']:.3f})", flush=True)
+
+    launches = {"ternary_conv2d": ternary_conv2d_cuda.launches,
+                "ternary_matmul": ternary_matmul_cuda.launches}
+    if any(launches.values()):
+        fail(f"dryrun: the dry-run launched the CUTIE kernels: {launches}")
+    out["kernel_launches"] = launches
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
+def shard_path(dev):
+    """Phase 11: the pool's slot axis laid across devices.  Full-width
+    ``dvs_cnn_tcn``, pool 8, ``fused``, captured, in ``SHARD_BLOCKS``
+    blocks on this card (`PoolSharding`, the code two cards run) against
+    the plain captured pool over admit / partial / evict ticks: bit-equal,
+    one capture per block, 9 K1 launches per block per tick; host ms/tick
+    of both in turns; the launcher's ``--dvs --shard``.  Returns the
+    report and the K1 launches of the split pool's ticks."""
+    from repro_torch.api import get_net
+    from repro_torch.data.pipeline import DVSEventPipeline
+    from repro_torch.kernels.ternary_conv2d import ternary_conv2d_cuda
+    from repro_torch.serving import PoolSharding
+
+    t_phase = time.perf_counter()
+    prog = get_net("dvs_cnn_tcn")
+    g = prog.graph
+    n_frames = 12
+    frames, _ = DVSEventPipeline(POOL + 4, steps=max(n_frames, TIMED_TICKS + 5),
+                                 hw=g.input_hw[0], seed=SEED + 2).next_batch()
+    deployed = prog.quantize(prog.init(torch.Generator().manual_seed(SEED), device=dev),
+                             calib=torch.from_numpy(frames[:, :n_frames]).to(dev))
+    sharding = PoolSharding([dev] * SHARD_BLOCKS)
+    split = deployed.serve(POOL, backend="fused", sharding=sharding)
+    plain = deployed.serve(POOL, backend="fused")
+    if split.sharding is not sharding or plain.sharding is not None:
+        fail(f"shard: split.sharding {split.sharding}, plain.sharding {plain.sharding}")
+
+    # churn: 6 streams, evictions and refills across the block boundary,
+    # partial ticks on odd ticks
+    clip = {f"s{i}": i for i in range(POOL + 4)}
+    admit_at = {0: [f"s{i}" for i in range(6)], 3: ["s6", "s7"], 5: ["s8", "s9"],
+                8: ["s10", "s11"]}
+    evict_at = {4: ["s1", "s4"], 7: ["s0", "s7"]}
+    ternary_conv2d_cuda.launches = 0
+    for t in range(n_frames):
+        for sid in evict_at.get(t, []):
+            a, b = split.evict(sid), plain.evict(sid)
+            if not (torch.equal(a.ring.buf, b.ring.buf) and torch.equal(a.steps_seen,
+                                                                          b.steps_seen)):
+                fail(f"shard: evicted state of {sid} differs at tick {t}")
+        for sid in admit_at.get(t, []):
+            split.admit(sid)
+            plain.admit(sid)
+        live = split.active_streams
+        stepping = [s for j, s in enumerate(live) if t % 2 == 0 or j % 2 == 0]
+        fr = {sid: frames[clip[sid], t] for sid in stepping}
+        a, b = split.step(fr), plain.step(fr)
+        for sid in fr:
+            if not torch.equal(a[sid], b[sid]):
+                fail(f"shard: split pool != plain pool for {sid} at tick {t}")
+        if split.trace_count != SHARD_BLOCKS or not split.captured:
+            fail(f"shard: split pool trace_count {split.trace_count} after tick {t}, "
+                 f"captured {split.captured}; the contract is one capture per block")
+    k1_split_and_plain = ternary_conv2d_cuda.launches
+    # the same ticks again on the split pool alone: 9 K1 per block per tick
+    ternary_conv2d_cuda.launches = 0
+    for t in range(n_frames):
+        split.step({sid: frames[clip[sid], t] for sid in split.active_streams})
+    torch.cuda.synchronize()
+    k1_split = ternary_conv2d_cuda.launches
+    if k1_split != 9 * SHARD_BLOCKS * n_frames:
+        fail(f"shard: {k1_split} K1 launches over {n_frames} split-pool ticks, expected "
+             f"{9 * SHARD_BLOCKS} per tick")
+    if k1_split_and_plain != (9 * SHARD_BLOCKS + 9) * n_frames:
+        fail(f"shard: {k1_split_and_plain} K1 launches over the churn ticks of both pools")
+    print(f"[chip_smoke] shard: {g.name} fused pool {POOL} in {SHARD_BLOCKS} blocks on "
+          f"{dev} == the plain pool over {n_frames} admit/partial/evict ticks; "
+          f"trace_count {split.trace_count}; {k1_split} K1 launches over {n_frames} ticks "
+          f"({9 * SHARD_BLOCKS} per tick)", flush=True)
+
+    # host ms/tick, every slot busy, in turns: plain, split, split, plain
+    pools = {"plain": deployed.serve(POOL, backend="fused"),
+             "split": deployed.serve(POOL, backend="fused", sharding=sharding)}
+    for pool in pools.values():
+        for i in range(POOL):
+            pool.admit(f"s{i}")
+
+    def ticks(pool, lo=5, hi=5 + TIMED_TICKS):
+        for t in range(lo, hi):
+            pool.step({f"s{i}": frames[i, t] for i in range(POOL)})
+
+    for pool in pools.values():
+        ticks(pool, 0, 5)
+    torch.cuda.synchronize()
+    host = {"plain": [], "split": []}
+    for _ in range(TIMING_ROUNDS):
+        for name in ("plain", "split", "split", "plain"):
+            t0 = time.perf_counter()
+            ticks(pools[name])
+            torch.cuda.synchronize()
+            host[name].append((time.perf_counter() - t0) / TIMED_TICKS * 1e3)
+    timing = {name: {"host_ms_per_tick": v, "host_ms_per_tick_median": float(np.median(v))}
+              for name, v in host.items()}
+    for name, pool in pools.items():
+        if pool.trace_count != (SHARD_BLOCKS if name == "split" else 1):
+            fail(f"shard: timed {name} pool trace_count {pool.trace_count}")
+    print(f"[chip_smoke] shard: pool {POOL} host ms/tick, in turns: plain "
+          + " ".join(f"{v:.4f}" for v in host["plain"])
+          + f" (median {timing['plain']['host_ms_per_tick_median']:.4f}); split "
+          + " ".join(f"{v:.4f}" for v in host["split"])
+          + f" (median {timing['split']['host_ms_per_tick_median']:.4f})", flush=True)
+
+    # the launcher: --shard on one card resolves to one block
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        [str(REPO / "src")] + [p for p in [os.environ.get("PYTHONPATH")] if p])}
+    argv = [sys.executable, "-m", "repro_torch.launch.serve", "--dvs", "--shard",
+            "--pool", str(POOL), "--frames", "4"]
+    t0 = time.perf_counter()
+    res = subprocess.run(argv, capture_output=True, text=True, timeout=600, env=env,
+                         cwd=REPO)
+    if res.returncode != 0 or "(shard=False)" not in res.stdout:
+        fail(f"{' '.join(argv[1:])}: exit {res.returncode}, no '(shard=False)':\n"
+             f"{res.stdout[-2000:]}\n{res.stderr[-2000:]}")
+    print(f"[chip_smoke] shard: python {' '.join(argv[1:])} exit 0 in "
+          f"{time.perf_counter() - t0:.1f} s, shard=False on one card", flush=True)
+    return {"net": g.name, "pool": POOL, "blocks": SHARD_BLOCKS, "ticks": n_frames,
+            "trace_count": split.trace_count, "k1_launches": k1_split,
+            "k1_per_tick": k1_split / n_frames, "timing": timing,
+            "launcher_shard": "shard=False",
+            "phase_s": time.perf_counter() - t_phase}, k1_split
+
+
 def main() -> int:
     # phase 1: device
     if not torch.cuda.is_available():
@@ -1883,7 +2161,13 @@ def main() -> int:
     # phase 9: the LM training path
     lm_train_report = lm_train_path(dev)
 
-    # phase 10: results
+    # phase 10: the dry-run
+    dryrun_report = dryrun_path(dev)
+
+    # phase 11: the pool laid across devices
+    shard_report, k1_shard = shard_path(dev)
+
+    # phase 12: results
     mm = mm_rows[0]  # the quickstart's launch: 64x2048x512 float32
     kernels = {"kernels": [{
         "name": "ternary_conv2d", "route": "cuda", "source": K1_SOURCE,
@@ -1898,6 +2182,10 @@ def main() -> int:
         "launches_train": k1_train,
         "launches_train_cover": "the final deployed eval of the full-width cifar10_tnn run",
         "launches_lm_train": lm_train_report["kernel_launches"]["ternary_conv2d"],
+        "launches_dryrun": dryrun_report["kernel_launches"]["ternary_conv2d"],
+        "launches_shard": k1_shard,
+        "launches_shard_cover": f"{shard_report['ticks']} ticks of the pool in "
+                                f"{SHARD_BLOCKS} blocks",
         "times_cover": "the 9 launches of one pool tick at pool size 8 (sum)",
         "shapes": per_shape,
     }, {
@@ -1909,6 +2197,7 @@ def main() -> int:
         "ms_over_library": mm["ms"] / mm["library_ms"],
         "launches_cover": "the quickstart path",
         "launches_lm_train": lm_train_report["kernel_launches"]["ternary_matmul"],
+        "launches_dryrun": dryrun_report["kernel_launches"]["ternary_matmul"],
         "times_cover": "one launch at the quickstart shape 64x2048x512, float32",
         "shapes": mm_rows,
     }]}
@@ -1917,6 +2206,8 @@ def main() -> int:
     print(json.dumps({"train": train_report}), flush=True)
     print(json.dumps({"lm": lm_report}), flush=True)
     print(json.dumps({"lm_train": lm_train_report}), flush=True)
+    print(json.dumps({"dryrun": dryrun_report}), flush=True)
+    print(json.dumps({"shard": shard_report}), flush=True)
     print(json.dumps(kernels), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

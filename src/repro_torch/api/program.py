@@ -141,6 +141,15 @@ def _dispatch_conv(x, packed, eff_scale, backend: str, *, threshold=0.5, pool: i
     )
 
 
+def _moved(tables, device):
+    """``tables`` with every tensor copied to ``device``, keys in order."""
+    if isinstance(tables, dict):
+        return {k: _moved(v, device) for k, v in tables.items()}
+    if isinstance(tables, (list, tuple)):
+        return type(tables)(_moved(v, device) for v in tables)
+    return tables.to(device) if isinstance(tables, torch.Tensor) else tables
+
+
 def _pad_channels(x: torch.Tensor, c: int) -> torch.Tensor:
     if x.shape[-1] < c:
         x = F.pad(x, (0, c - x.shape[-1]))
@@ -421,6 +430,14 @@ class DeployedProgram:
             if self.tables.get(kind):
                 return self.tables[kind][0]["packed"].device
         return self.tables["fc"]["t"].device
+
+    def to(self, device) -> "DeployedProgram":
+        """This program with its tables on ``device`` (itself when they lie
+        there already): a `SessionPool` block on another card runs it."""
+        device = torch.device(device)
+        if device == self.device:
+            return self
+        return DeployedProgram(self.graph, _moved(self.tables, device))
 
     # -- per-layer constants -----------------------------------------------
 

@@ -60,6 +60,14 @@ class LoadedProgram:
         """Total packed weight-image bytes (the device's weight SCM load)."""
         return self.memory.nbytes
 
+    def to(self, device) -> "LoadedProgram":
+        """This program on ``device`` (itself when it lies there already):
+        the same artifact, its images copied there on first use."""
+        device = resolve_device(device)
+        if device == self.device:
+            return self
+        return LoadedProgram(self.info, self.plan, self.memory, device=device)
+
     # -- execution ---------------------------------------------------------
 
     def _executor(self, backend: str):

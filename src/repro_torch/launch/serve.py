@@ -45,7 +45,15 @@ energy (CUTIE silicon-model uJ) whenever the trace has quiet frames.
 track per served program) as Chrome/Perfetto JSON; ``--trace-clock tick``
 stamps a deterministic event sequence instead of wall time; ``--metrics-out
 FILE.prom`` writes the serving metrics registry as a Prometheus text
-snapshot.  The reference's ``--shard`` is not defined here yet.
+snapshot.  ``--shard`` lays each pool's slot axis across the local cards
+(``sharding="auto"``: every card when there are several and they divide
+the pool; on one card it resolves to one block, ``shard=False``).
+
+LM serving builds the reference's local mesh and sharding rules
+(`launch/mesh.py`, `launch/sharding.py`) and hands their shard function to
+the steps: the identity on one device.  On a host with several cards,
+``--device cuda`` names them all and the shard function raises
+(tensor-parallel execution is not ported); ``--device cuda:0`` serves on one.
 
 ``--device`` defaults to ``cuda``; without a CUDA device that is an error,
 not a move to the CPU.  The default backend is "fused": conv + threshold
@@ -71,11 +79,14 @@ def serve_lm(args) -> int:
     """Batched prefill + greedy decode of ``--arch`` with random weights
     (seed ``--seed``).  Returns 0, or 1 when any logits are not finite."""
     from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.sharding import ShardingRules
     from repro_torch.launch.steps import make_decode_step, make_prefill_step
     from repro_torch.models.model import init_params
 
     device = resolve_device(args.device)
     cfg = get_config(args.arch, quant=args.quant, smoke=args.smoke)
+    shard = ShardingRules(make_local_mesh(device)).make_shard_fn()
     gen = torch.Generator(device=device).manual_seed(args.seed)
 
     def sync():
@@ -83,8 +94,9 @@ def serve_lm(args) -> int:
             torch.cuda.synchronize(device)
 
     params = init_params(cfg, gen, dtype=torch.float32, device=device)
-    prefill = make_prefill_step(cfg, args.prompt_len + args.tokens, cache_dtype=torch.float32)
-    decode = make_decode_step(cfg)
+    prefill = make_prefill_step(cfg, args.prompt_len + args.tokens, shard=shard,
+                                cache_dtype=torch.float32)
+    decode = make_decode_step(cfg, shard=shard)
     batch = {"tokens": torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
                                      generator=gen, device=device)}
     if cfg.frontend == "vision":
@@ -161,7 +173,8 @@ def serve_dvs(args) -> int:
         frames, labels = pipe.next_batch()
         deployed = prog.quantize(params, calib=torch.from_numpy(frames).to(device))
 
-    pool = deployed.serve(args.pool, backend=args.backend)
+    pool = deployed.serve(args.pool, backend=args.backend,
+                          sharding="auto" if args.shard else None)
     tracer = _make_tracer(args)
     batcher = ContinuousBatcher(pool, tracer=tracer)
     for i in range(n_streams):
@@ -183,7 +196,8 @@ def serve_dvs(args) -> int:
     acc = stats["accuracy"]
     fps = stats["frames_processed"] / wall if wall > 0 else float("nan")
     print(f"[serve-dvs] {g.name} ({args.backend}, {device}): {n_streams} sensors x "
-          f"{args.frames} frames through a {args.pool}-slot pool")
+          f"{args.frames} frames through a {args.pool}-slot pool "
+          f"(shard={pool.sharding is not None})")
     print(f"[serve-dvs] {stats['frames_processed']} frames in "
           f"{stats['ticks']} ticks, {wall:.2f} s -> {fps:.0f} frames/s, "
           f"mean occupancy {stats['mean_occupancy']:.2f}, "
@@ -269,6 +283,7 @@ def serve_fleet_scenario(args) -> int:
         queue_limit=args.queue_limit,
         shrink_after=args.shrink_after,
         ingest=args.ingest,
+        sharding="auto" if args.shard else None,
         gate=gate,
         tracer=tracer,
     )
@@ -561,6 +576,9 @@ def main(argv=None) -> int:
     ap.add_argument("--metrics-out", default=None, metavar="FILE.prom",
                     help="write the serving metrics registry as a Prometheus "
                          "text snapshot")
+    ap.add_argument("--shard", action="store_true",
+                    help="dvs/fleet: shard each pool's slot axis across the local "
+                         "cards (sharding='auto')")
     ap.add_argument("--check-streams", type=int, default=2,
                     help="dvs: streams replayed through single sessions for the "
                          "bit-exactness gate (the fleet replays every stream)")

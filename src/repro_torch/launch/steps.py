@@ -107,7 +107,8 @@ def make_train_step(
     that many micro-batches (rows ``i*B/n .. (i+1)*B/n``), sums their
     float32 grads and divides.  Metrics: ``{"loss", "aux"}`` (``{"loss"}``,
     the mean total loss, when accumulating), then AdamW's ``lr`` and
-    ``grad_norm``.  ``shard`` is the identity (one card)."""
+    ``grad_norm``.  ``shard`` is the shard function of
+    `launch/sharding.py` (the identity on one device)."""
 
     def train_step(state: TrainState, batch) -> Tuple[TrainState, Dict]:
         device = tree_leaves(state.params)[0].device

@@ -5,9 +5,11 @@ Resolve ``--arch`` -> a float32 `TrainState` on ``--device`` -> a donating
 train step (`launch/steps.py` ``make_train_step(..., donate=True)``, the
 counterpart of the reference's ``jax.jit(step, donate_argnums=(0,))``) ->
 the supervised loop of `launch/ft.py` (atomic checkpoints, exactly-once
-data cursor, loss guard, restarts).  The reference's ``make_local_mesh`` /
-``ShardingRules`` have no counterpart yet: the port runs on one card and
-``shard`` is the identity.
+data cursor, loss guard, restarts).  As in the reference, the step takes
+the shard function of ``ShardingRules(make_local_mesh(device))``: the
+identity on one device; on a host with several cards ``--device cuda``
+names them all and it raises (tensor-parallel execution is not ported),
+so pass ``--device cuda:0``.
 
 The paper's training loop — ternary QAT on `CutieProgram.forward_qat` —
 is `repro_torch.train`, driven by ``python -m repro_torch.launch.train``.
@@ -33,6 +35,8 @@ from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.data.pipeline import LMTokenPipeline
 from repro_torch.device import resolve_device
 from repro_torch.launch.ft import run_with_restarts
+from repro_torch.launch.mesh import make_local_mesh
+from repro_torch.launch.sharding import ShardingRules
 from repro_torch.launch.steps import make_train_state, make_train_step
 from repro_torch.optim.adamw import AdamWConfig
 
@@ -66,7 +70,9 @@ def main(argv=None, *, fault_injector=None):
         d_model=cfg.d_model,
         enc_seq=cfg.enc_seq_len if cfg.is_encdec else 0,
     )
-    step = make_train_step(cfg, opt_cfg, compress_grads=args.compress_grads, donate=True)
+    shard = ShardingRules(make_local_mesh(device)).make_shard_fn()
+    step = make_train_step(cfg, opt_cfg, shard=shard, compress_grads=args.compress_grads,
+                           donate=True)
 
     def init_state():
         gen = torch.Generator(device=device).manual_seed(args.seed)

@@ -47,7 +47,7 @@ from repro_torch.serving.gating import (
     energy_summary,
     frame_energy_uj,
 )
-from repro_torch.serving.pool import PoolFullError, SessionPool
+from repro_torch.serving.pool import PoolFullError, PoolSharding, SessionPool
 from repro_torch.serving.scheduler import ContinuousBatcher, StreamRequest, StreamResult
 
 __all__ = [
@@ -56,5 +56,5 @@ __all__ = [
     "bucket_ladder", "serve_fleet",
     "PoolState", "clear_slot", "clear_slot_", "gather_slot", "masked_push",
     "masked_push_", "ordered_windows", "scatter_slot", "scatter_slot_",
-    "PoolFullError", "SessionPool", "ContinuousBatcher", "StreamRequest", "StreamResult",
+    "PoolFullError", "PoolSharding", "SessionPool", "ContinuousBatcher", "StreamRequest", "StreamResult",
 ]

@@ -45,8 +45,9 @@ means many tenants running *different* registry nets concurrently — the
     streams park out of their pool slot with ring state retained and stop
     counting toward autoscale demand, waking bit-identically on an event
     burst (`repro_torch.serving.gating`).
-  * **Device sharding** is not ported: ``sharding`` is accepted and is a
-    no-op on one device (see `SessionPool`).
+  * **Device sharding.**  ``sharding="auto"`` lays every bucket's pool
+    axis across the local cards when they divide it (`SessionPool`'s
+    blocks); on one card each pool is one block.
 
 Entry points::
 

@@ -46,13 +46,21 @@ fleet feeder's double buffers) is copied without blocking and an event
 marks when the copy is done (`last_upload`); any other batch is copied
 synchronously.  `step_prepared` returns a new logits tensor every tick.
 
-``sharding`` is accepted for the reference's signature and is a no-op on
-one device (``None``, ``False``, ``True``, ``"auto"`` or ``1``); laying the
-pool axis across several cards is not ported.
+**Batch-axis sharding.**  ``sharding`` lays the pool axis across devices as
+the reference's ``PartitionSpec("pool")`` does: a `PoolSharding` over n
+devices gives device i the contiguous block of slots ``[i*P/n, (i+1)*P/n)``.
+Each block owns its static tensors and its own step (one capture on the
+card); a tick splits the assembled batch by block, runs every block's step
+and returns the logits in slot order; slot surgery addresses the block
+that holds the slot, in place.  ``sharding="auto"`` (or True) takes every
+local device of the program's kind when there are several and they divide
+the pool (else None: one block); an int asks for exactly that many.  A
+block on another device than the program's runs a copy of it there
+(``program.to(device)``).
 """
 from __future__ import annotations
 
-from typing import Dict, List, Mapping, Optional, Tuple
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -82,6 +90,97 @@ class PoolFullError(RuntimeError):
     `repro_torch.serving.scheduler.ContinuousBatcher`)."""
 
 
+class PoolSharding:
+    """The pool axis laid over ``devices`` (the reference's
+    ``NamedSharding(Mesh(devices, ("pool",)), PartitionSpec("pool"))``):
+    device i holds the i-th contiguous block of P/n slots.  A device may
+    repeat: two blocks on one device run the same code as two cards."""
+
+    def __init__(self, devices: Sequence[Union[str, torch.device]]):
+        devs = [torch.device(d) for d in devices]
+        if not devs:
+            raise ValueError("PoolSharding needs at least one device")
+        self.devices: Tuple[torch.device, ...] = tuple(
+            torch.device("cuda", torch.cuda.current_device())
+            if d.type == "cuda" and d.index is None else d for d in devs)
+
+    def __len__(self) -> int:
+        return len(self.devices)
+
+    def __repr__(self) -> str:
+        return f"PoolSharding({[str(d) for d in self.devices]})"
+
+
+def _local_devices(device: torch.device) -> List[torch.device]:
+    """Every local device of ``device``'s kind: each card, or the one CPU."""
+    if device.type == "cuda":
+        return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    return [device]
+
+
+def _resolve_sharding(sharding, pool_size: int,
+                      device: torch.device) -> Optional[PoolSharding]:
+    """Turn the user-facing ``sharding`` argument into a `PoolSharding` (or
+    None).  "auto"/True shard over all local devices when that divides the
+    pool evenly; an int requests exactly that many devices (hard error when
+    impossible); a `PoolSharding` passes through."""
+    if sharding is None or sharding is False:
+        return None
+    if isinstance(sharding, PoolSharding):
+        if pool_size % len(sharding):
+            raise ValueError(
+                f"pool_size {pool_size} not divisible by {len(sharding)} devices")
+        return sharding
+    devices = _local_devices(torch.device(device))
+    if sharding == "auto" or sharding is True:
+        n = len(devices)
+        if n <= 1 or pool_size % n:
+            return None
+    elif isinstance(sharding, int):
+        n = sharding
+        if n > len(devices):
+            raise ValueError(f"requested {n} devices, host has {len(devices)}")
+        if pool_size % n:
+            raise ValueError(f"pool_size {pool_size} not divisible by {n} devices")
+    else:
+        raise ValueError(f"unknown sharding spec {sharding!r}")
+    return PoolSharding(devices[:n])
+
+
+class _Block:
+    """Slots ``[lo, lo + size)`` of a pool on one device: the program there,
+    the static tensors the step reads and writes in place, and the step."""
+
+    def __init__(self, program, lo: int, size: int, backend: str, jit: bool,
+                 frame_shape: Tuple[int, ...]):
+        g = program.graph
+        self.program = program
+        self.lo, self.size = lo, size
+        self.backend = backend
+        self.device = program.device
+        self.state = PoolState.create(size, g.tcn_steps, g.feature_channels,
+                                      device=self.device)
+        self.frames = torch.zeros((size, *frame_shape), dtype=torch.float32,
+                                  device=self.device)
+        self.active = torch.zeros((size,), dtype=torch.bool, device=self.device)
+        self.step = CapturedStep(self._run_step, self.device, capture=jit)
+
+    def _run_step(self) -> torch.Tensor:
+        """The block's step over its static tensors: CNN frontend ->
+        masked ring push (in place) -> TCN head.  Returns the logits."""
+        feats = self.program.spatial_forward(self.frames, self.backend)
+        masked_push_(self.state, feats, self.active)
+        return self.program.temporal_forward(ordered_windows(self.state), self.backend)
+
+
+class _Events(tuple):
+    """The events of one upload to several devices."""
+
+    def synchronize(self) -> None:
+        for event in self:
+            event.synchronize()
+
+
 class SessionPool:
     """Fixed-shape multi-stream serving state over one `DeployedProgram`.
 
@@ -89,7 +188,9 @@ class SessionPool:
     cursors), a ``[P, H, W, C]`` frame batch and a ``[P]`` active mask on
     the program's device, and one step: CNN frontend on the frame batch ->
     masked ring push -> TCN head on the ``[P, T, C]`` ordered windows.
-    Slot bookkeeping (which stream sits where) is plain host-side Python.
+    With ``sharding``, each device's block of slots has its own (see the
+    module docstring).  Slot bookkeeping (which stream sits where) is plain
+    host-side Python.
     """
 
     def __init__(self, deployed, pool_size: int, backend: str = "fused",
@@ -101,30 +202,23 @@ class SessionPool:
             raise ValueError(f"{deployed.graph.name} has no TCN memory to pool")
         if pool_size < 1:
             raise ValueError(f"pool_size must be >= 1, got {pool_size}")
-        if not (sharding is None or sharding is False or sharding is True
-                or sharding == "auto" or sharding == 1):
-            raise ValueError(
-                f"sharding={sharding!r}: the port's pool runs on one device; "
-                "laying the pool axis across devices is not ported"
-            )
-        self.sharding = None  # one device: the reference's "auto" resolves to None
         self.deployed = deployed
         self.pool_size = pool_size
         self.backend = backend
         self.jit = jit
         self.device = deployed.device
+        self.sharding = _resolve_sharding(sharding, pool_size, self.device)
         g = deployed.graph
         self.frame_shape: Tuple[int, ...] = (*g.input_hw, g.input_ch)
-        # the static tensors the step reads and writes in place
-        self.state = PoolState.create(
-            pool_size, g.tcn_steps, g.feature_channels, device=self.device
-        )
-        self._frames = torch.zeros((pool_size, *self.frame_shape),
-                                   dtype=torch.float32, device=self.device)
-        self._active = torch.zeros((pool_size,), dtype=torch.bool, device=self.device)
-        self._step = CapturedStep(self._run_step, self.device, capture=jit)
-        # the event after the last non-blocking upload (None: it was synchronous)
-        self.last_upload: Optional[torch.cuda.Event] = None
+        devices = self.sharding.devices if self.sharding is not None else (self.device,)
+        size = pool_size // len(devices)
+        self._blocks = [
+            _Block(deployed if dev == self.device else deployed.to(dev), i * size, size,
+                   backend, jit, self.frame_shape)
+            for i, dev in enumerate(devices)
+        ]
+        # the event(s) after the last non-blocking upload (None: it was synchronous)
+        self.last_upload = None
         self._slots: List[Optional[str]] = [None] * pool_size
         self._slot_of: Dict[str, int] = {}
         # observability: NULL_TRACER when tracing is off (no-op span, no
@@ -132,12 +226,20 @@ class SessionPool:
         self.tracer = tracer if tracer is not None else NULL_TRACER
         self.track = getattr(deployed.graph, "name", "pool")
 
-    def _run_step(self) -> torch.Tensor:
-        """The pool's one step over its static tensors: CNN frontend ->
-        masked ring push (in place) -> TCN head.  Returns the logits."""
-        feats = self.deployed.spatial_forward(self._frames, self.backend)
-        masked_push_(self.state, feats, self._active)
-        return self.deployed.temporal_forward(ordered_windows(self.state), self.backend)
+    @property
+    def state(self) -> PoolState:
+        """The pooled ring state: the block's own on one device, else a copy
+        of every block's, in slot order, on the first block's device."""
+        if len(self._blocks) == 1:
+            return self._blocks[0].state
+        dev = self._blocks[0].device
+        return PoolState(*(torch.cat([getattr(b.state, f).to(dev) for b in self._blocks])
+                           for f in ("buf", "cursor", "steps")))
+
+    def _locate(self, slot: int) -> Tuple[_Block, int]:
+        """The block holding ``slot`` and the slot's index in it."""
+        block = self._blocks[slot // self._blocks[0].size]
+        return block, slot - block.lo
 
     # -- admission control -------------------------------------------------
 
@@ -156,10 +258,11 @@ class SessionPool:
             raise PoolFullError(
                 f"all {self.pool_size} slots busy; evict before admitting"
             ) from None
+        block, i = self._locate(slot)
         if state is None:
-            clear_slot_(self.state, slot)
+            clear_slot_(block.state, i)
         else:
-            scatter_slot_(self.state, slot, state)
+            scatter_slot_(block.state, i, state)
         self._slots[slot] = stream_id
         self._slot_of[stream_id] = slot
         return slot
@@ -170,12 +273,14 @@ class SessionPool:
         The slot is refillable immediately."""
         slot = self._slot_of.pop(self._require(stream_id))
         self._slots[slot] = None
-        return gather_slot(self.state, slot)
+        block, i = self._locate(slot)
+        return gather_slot(block.state, i)
 
     def reset(self, stream_id: str) -> None:
         """Per-slot reset: zero this stream's ring and age, leaving every
         other slot untouched."""
-        clear_slot_(self.state, self._slot_of[self._require(stream_id)])
+        block, i = self._locate(self._slot_of[self._require(stream_id)])
+        clear_slot_(block.state, i)
 
     def _require(self, stream_id: str) -> str:
         if stream_id not in self._slot_of:
@@ -224,32 +329,41 @@ class SessionPool:
         inputs: without blocking from pinned memory (recording
         `last_upload`), synchronously otherwise."""
         src_b, src_a = torch.as_tensor(batch), torch.as_tensor(active)
-        if tuple(src_b.shape) != tuple(self._frames.shape) or tuple(src_a.shape) != (
-                self.pool_size,):
+        want = (self.pool_size, *self.frame_shape)
+        if tuple(src_b.shape) != want or tuple(src_a.shape) != (self.pool_size,):
             raise ValueError(
                 f"batch {tuple(src_b.shape)} / active {tuple(src_a.shape)} do not "
-                f"fit the pool's {tuple(self._frames.shape)} / ({self.pool_size},)"
+                f"fit the pool's {want} / ({self.pool_size},)"
             )
         pinned = (self.device.type == "cuda" and src_b.is_pinned()
                   and src_a.is_pinned())
-        self._frames.copy_(src_b, non_blocking=pinned)
-        self._active.copy_(src_a, non_blocking=pinned)
+        for b in self._blocks:
+            b.frames.copy_(src_b[b.lo:b.lo + b.size], non_blocking=pinned)
+            b.active.copy_(src_a[b.lo:b.lo + b.size], non_blocking=pinned)
         self.last_upload = None
         if pinned:
-            self.last_upload = torch.cuda.Event()
-            self.last_upload.record()
+            events = []
+            for dev in dict.fromkeys(b.device for b in self._blocks):
+                with torch.cuda.device(dev):
+                    events.append(torch.cuda.Event())
+                    events[-1].record()
+            self.last_upload = events[0] if len(events) == 1 else _Events(events)
 
     def step_prepared(self, batch: np.ndarray, active: np.ndarray) -> torch.Tensor:
         """The device half of a tick: copy an assembled ``(batch, active)``
         pair (see `prepare`) into the static inputs, run the step (a graph
-        replay once captured), and return the full ``[P, n_classes]``
-        logits on the device as a new tensor — callers map slots back to
-        stream ids.  A pageable host buffer has been read when this
-        returns; a pinned one once `last_upload` has completed."""
+        replay once captured) of every block, and return the full ``[P,
+        n_classes]`` logits as a new tensor, in slot order on the first
+        block's device — callers map slots back to stream ids.  A pageable
+        host buffer has been read when this returns; a pinned one once
+        `last_upload` has completed."""
         with self.tracer.span("pool.step", track=self.track,
                               pool_size=self.pool_size):
             self._upload(batch, active)
-            return self._step()
+            if len(self._blocks) == 1:
+                return self._blocks[0].step()
+            dev = self._blocks[0].device
+            return torch.cat([b.step().to(dev) for b in self._blocks])
 
     def step(self, frames: Mapping[str, object]) -> Dict[str, torch.Tensor]:
         """One pool tick.  ``frames`` maps stream id -> ``[H, W, C]`` frame
@@ -275,7 +389,8 @@ class SessionPool:
     def steps_seen(self, stream_id: str) -> int:
         """Frames this stream has absorbed since (re)admission.  Reading it
         waits for the device."""
-        return int(self.state.steps[self._slot_of[self._require(stream_id)]])
+        block, i = self._locate(self._slot_of[self._require(stream_id)])
+        return int(block.state.steps[i])
 
     def window_warm(self, stream_id: str) -> bool:
         """True once this stream's full tcn_steps window is real frames."""
@@ -296,18 +411,19 @@ class SessionPool:
 
     @property
     def trace_count(self) -> int:
-        """How many times this pool built its step: captures of the CUDA
-        graph on the card (``jit=True``), eager step builds on the CPU or
-        with ``jit=False``.  0 before the first step, then 1 for the pool's
-        whole life — the continuous-batching contract (admit / evict /
-        partial ticks / migration never rebuild)."""
-        return self._step.builds
+        """How many times this pool built its step, summed over its blocks:
+        captures of the CUDA graph on the card (``jit=True``), eager step
+        builds on the CPU or with ``jit=False``.  0 before the first step,
+        then one per block for the pool's whole life — the
+        continuous-batching contract (admit / evict / partial ticks /
+        migration never rebuild)."""
+        return sum(b.step.builds for b in self._blocks)
 
     @property
     def captured(self) -> bool:
-        """True once the step is a captured CUDA graph (``jit=True`` on the
-        card, after the first step)."""
-        return self._step.captured
+        """True once every block's step is a captured CUDA graph (``jit=True``
+        on the card, after the first step)."""
+        return all(b.step.captured for b in self._blocks)
 
     def __contains__(self, stream_id: str) -> bool:
         return stream_id in self._slot_of
@@ -318,6 +434,7 @@ class SessionPool:
     def __repr__(self) -> str:
         return (
             f"SessionPool(size={self.pool_size}, backend={self.backend!r}, "
-            f"device={str(self.device)!r}, jit={self.jit}, active={len(self._slot_of)}, "
+            f"device={str(self.device)!r}, jit={self.jit}, sharding={self.sharding!r}, "
+            f"active={len(self._slot_of)}, "
             f"occupancy={self.occupancy:.2f})"
         )

@@ -51,9 +51,8 @@ its wall-clock spans around work on the card measure enqueue time.
 ``metrics`` (a `repro_torch.obs.MetricsRegistry`) keeps the always-on
 occupancy, queue, frame and tick-latency series.
 
-Not carried over yet from the reference: laying a pool across several
-cards (``--shard``).  The tracer's events render for Chrome/Perfetto
-through `repro_torch.obs.export`.
+The tracer's events render for Chrome/Perfetto through
+`repro_torch.obs.export`.
 """
 from __future__ import annotations
 

@@ -6,10 +6,13 @@ NamedTuples (`optim.AdamWState`) with tensors at the leaves.  These helpers
 walk them in `jax.tree_util.tree_flatten`'s order — dict keys sorted, lists
 and tuples in order, NamedTuples in field order, ``None`` an empty subtree —
 so a checkpoint's flat leaf index means the same leaf in both packages.
+`tree_leaves_with_path` names each leaf's path with keys that read as
+`jax.tree_util`'s (``['k']``, ``[0]``, ``.field``), so rules keyed on paths
+(`repro_torch.launch.sharding`) see the reference's names.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Iterator, List, Optional
+from typing import Any, Callable, Iterator, List, NamedTuple, Optional, Tuple
 
 
 def _is_namedtuple(x) -> bool:
@@ -26,6 +29,45 @@ def tree_leaves(tree, is_leaf: Optional[Callable[[Any], bool]] = None) -> List:
     if isinstance(tree, (list, tuple)):
         return [leaf for x in tree for leaf in tree_leaves(x, is_leaf)]
     return [] if tree is None else [tree]
+
+
+class DictKey(NamedTuple):
+    """A dict entry on a leaf's path (`jax.tree_util.DictKey`)."""
+    key: Any
+
+    def __str__(self) -> str:
+        return f"[{self.key!r}]"
+
+
+class SequenceKey(NamedTuple):
+    """A list or tuple position on a leaf's path (`jax.tree_util.SequenceKey`)."""
+    idx: int
+
+    def __str__(self) -> str:
+        return f"[{self.idx}]"
+
+
+class GetAttrKey(NamedTuple):
+    """A NamedTuple field on a leaf's path (`jax.tree_util.GetAttrKey`)."""
+    name: str
+
+    def __str__(self) -> str:
+        return f".{self.name}"
+
+
+def tree_leaves_with_path(tree, path: Tuple = ()) -> List[Tuple[Tuple, Any]]:
+    """``(path, leaf)`` pairs in `tree_leaves` order; a path is a tuple of
+    `DictKey` / `SequenceKey` / `GetAttrKey`."""
+    if isinstance(tree, dict):
+        return [pl for k in sorted(tree)
+                for pl in tree_leaves_with_path(tree[k], path + (DictKey(k),))]
+    if _is_namedtuple(tree):
+        return [pl for f, x in zip(tree._fields, tree)
+                for pl in tree_leaves_with_path(x, path + (GetAttrKey(f),))]
+    if isinstance(tree, (list, tuple)):
+        return [pl for i, x in enumerate(tree)
+                for pl in tree_leaves_with_path(x, path + (SequenceKey(i),))]
+    return [] if tree is None else [(path, tree)]
 
 
 def tree_unflatten(like, leaves) -> Any:
@@ -60,3 +102,8 @@ def _build(like, it: Iterator):
 def tree_map(fn: Callable, tree):
     """``fn`` over every leaf of ``tree``, keeping its structure."""
     return tree_unflatten(tree, [fn(x) for x in tree_leaves(tree)])
+
+
+def tree_map_with_path(fn: Callable, tree):
+    """``fn(path, leaf)`` over every leaf of ``tree``, keeping its structure."""
+    return tree_unflatten(tree, [fn(p, x) for p, x in tree_leaves_with_path(tree)])

@@ -580,12 +580,15 @@ class TestLauncher:
 
     @pytest.mark.parametrize("flag", ["--trace", "--trace-clock", "--metrics-out", "--shard"])
     def test_obs_and_shard_flags_are_not_defined_yet(self, flag, capsys):
-        """``--shard`` is still not defined; the obs flags are, since the
-        trace export is ported (tests/test_torch_obs_export.py runs them)."""
+        """The obs flags and ``--shard`` are defined, since the trace export
+        (tests/test_torch_obs_export.py) and the split pool
+        (tests/test_torch_serving_shard.py) are ported; ``--shard`` is a
+        switch and takes no value."""
         if flag == "--shard":
-            with pytest.raises(SystemExit):
+            with pytest.raises(SystemExit) as exit_info:
                 launch_serve.main(["--fleet", flag, "x", "--device", "cpu"])
-            return
+            assert exit_info.value.code == 2
+            assert "unrecognized arguments: x" in capsys.readouterr().err
         with pytest.raises(SystemExit) as exit_info:
             launch_serve.main(["--help"])
         assert exit_info.value.code == 0 and flag in capsys.readouterr().out

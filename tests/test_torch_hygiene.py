@@ -41,7 +41,9 @@ def test_every_port_module_imports_without_a_cuda_toolchain():
                  "repro_torch.train.loop", "repro_torch.optim.adamw",
                  "repro_torch.ckpt.checkpoint", "repro_torch.launch.ft",
                  "repro_torch.launch.train", "repro_torch.obs.export",
-                 "repro_torch.launch.train_lm", "repro_torch.optim.compress"):
+                 "repro_torch.launch.train_lm", "repro_torch.optim.compress",
+                 "repro_torch.launch.mesh", "repro_torch.launch.sharding",
+                 "repro_torch.launch.dryrun"):
         assert name in names
     for name in names:
         importlib.import_module(name)

@@ -89,8 +89,8 @@ def exact(a, b):
 
 
 def _ptrs(pool):
-    return (pool.state.buf.data_ptr(), pool.state.cursor.data_ptr(),
-            pool.state.steps.data_ptr(), pool._frames.data_ptr(), pool._active.data_ptr())
+    return [(b.state.buf.data_ptr(), b.state.cursor.data_ptr(), b.state.steps.data_ptr(),
+             b.frames.data_ptr(), b.active.data_ptr()) for b in pool._blocks]
 
 
 # ---------------------------------------------------------------------------
