@@ -17,12 +17,14 @@ version.  It imports `repro_torch` only.
     (kernel K1 through the plan executor), ungated and activity-gated,
     then through the launcher's ``--dvs --program`` and ``--fleet --gate``;
   * the training path — `repro_torch.train.train` (STE QAT, AdamW,
-    checkpoints) at full width on ``cifar10_tnn`` and ``dvs_cnn_tcn``,
-    ending in the deployed eval on ``fused`` (kernel K1), a resume on the
-    card, and the training launcher with its trace;
+    checkpoints; the donated step captured once per schedule segment as a
+    CUDA graph) at full width on ``cifar10_tnn`` and ``dvs_cnn_tcn``,
+    ending in the captured deployed eval on ``fused`` (kernel K1), a resume
+    on the card, and the training launcher with its trace;
   * the LM serving path — ``python -m repro_torch.launch.serve --arch
     gemma-2b`` at full published width (plain and 2-bit packed weights),
-    full-width ``gemma-2b`` and ``mamba2-370m`` prefill and decode, and
+    full-width ``gemma-2b`` and ``mamba2-370m`` prefill and decode (the
+    decode step donating its cache, captured once as a CUDA graph), and
     the ten architectures' SMOKE configs on the card against the CPU.  It
     reaches no TPU kernel in the reference and launches neither K1 nor K2;
   * the LM training path — `make_train_step(..., donate=True)` on
@@ -116,10 +118,22 @@ line):
                 `torch.equal`).  ``python -m repro_torch.launch.train --net
                 cifar10_tnn_smoke --smoke --trace`` and ``python -m
                 repro_torch.obs summarize`` exit 0 and the trace nests.
-                Times a full-width QAT forward + backward under the
-                deterministic cuDNN settings the trainer uses and under
-                cuDNN's autotuned ones, in turns.  Prints the ``train``
-                JSON line
+                `train` captures its donated step: one capture
+                per run of one segment, and per segment of an annealed
+                ``cifar10_tnn_smoke`` run (5 segments); the final eval's
+                forwards are captured too (K1 counted on the replays, the
+                capture recorded 8 / 9) and its hits == the plain forwards'.
+                A fault at step 5 under capture == an uninterrupted eager
+                run.  At full width (``cifar10_tnn`` batch 32,
+                ``dvs_cnn_tcn`` batch 8) the captured step == the raw eager
+                step over 20 steps bit for bit (every metric, param, m, v
+                and the step counter), then host ms per step (numpy batch
+                in, loss read) captured and eager in turns (3 rounds of
+                captured, eager, eager, captured; 20 steps each) and a
+                `torch.profiler` window of 5 steps each (device ms, kernels,
+                busy share); the captured ``cifar10_tnn`` step's device ms
+                with deterministic and with autotuned cuDNN, in turns.
+                Prints the ``train`` JSON line
   8. lm         ``python -m repro_torch.launch.serve --arch gemma-2b`` at the
                 reference's defaults (batch 4, prompt 32, 16 tokens), with
                 and without ``--quant ternary_packed``, exit 0 (finite
@@ -128,10 +142,16 @@ line):
                 256000, bf16 activations) prefill 4 x 32 + 16 decode steps
                 and one batch-1 4096-token prefill (the flash route);
                 ``mamba2-370m`` (48 SSD layers) one 4096-token prefill + 16
-                decode steps; each with prefill ms, decode ms per token,
+                decode steps; ``gemma-2b`` with ``ternary_packed`` weights,
+                4 x 32 + 16; each with prefill ms, decode ms per token,
                 device kernels per decode step (`torch.profiler`), peak
                 memory and the bound (params and cache bytes over HBM's
-                rate against the FLOPs at the card's peaks).  Gates: finite
+                rate against the FLOPs at the card's peaks).  The
+                decode step is `serve_lm`'s captured, donated one: ==
+                the raw eager step bit for bit over 16 tokens (logits and
+                cache), one capture, and host ms per token captured and
+                eager in turns (eager, captured, captured, eager; each
+                window a fresh prefill, then 16 tokens).  Gates: finite
                 logits; for both, in float32, decode(prefill(S-1), token S)
                 == the full forward's last logits (rtol=atol=2e-3, the
                 reference's own); the ten SMOKE configs give on the card
@@ -256,7 +276,12 @@ TRAIN_SPATIAL = ("cifar10_tnn", 8, 96, (32, 32), 3, 8, 0)
 TRAIN_TEMPORAL = ("dvs_cnn_tcn", 9, 96, (64, 64), 2, 5, 4)
 TRAIN_TEMPORAL_RECIPE = {"steps": 10, "batch": 8, "lr": 5e-3}
 TRAIN_EVAL_BATCHES = 4
-DETERMINISM_STEPS = 20   # QAT steps timed per cuDNN setting, in turns
+# the captured QAT step (`train`'s `CapturedStep` over `make_qat_step(...,
+# donate=True)`) against the raw eager step at full width: (spec, batch)
+TRAIN_CAPTURED = ((TRAIN_SPATIAL, 32), (TRAIN_TEMPORAL, 8))
+QAT_STEPS = 20           # steps compared bit for bit, and per timed window
+QAT_PROFILED = 5         # steps in each torch.profiler window
+DETERMINISM_STEPS = 20   # captured QAT steps timed per cuDNN setting, in turns
 
 # the LM serving path: the served config and the SSM config at full published
 # width; the 4096-token prefill takes the flash route at its threshold;
@@ -1200,31 +1225,140 @@ def _check_width(graph, spec):
         fail(f"{name} is not at full width: {got}")
 
 
-def _fwd_bwd_ms(prog, params, batch, deterministic: bool) -> float:
-    """Host ms per QAT forward + backward (each ends in a synchronise) with
-    cuDNN deterministic and not autotuned (the trainer's setting, see
-    `kernels.ref.deterministic_float32`) or autotuned and free to pick any
-    algorithm; TF32 off in both."""
-    from repro_torch.train import cross_entropy
-    from repro_torch.tree import tree_leaves, tree_unflatten
+def _qat_setup(spec, batch, dev):
+    """(program, AdamW config, QAT_STEPS numpy batches, a fresh train state)
+    of a full-width registry net, as `train` builds them."""
+    import dataclasses
 
-    leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
-    x, y = (torch.from_numpy(a).to(leaves[0].device) for a in batch)
-    flags = (dict(benchmark=False, deterministic=True) if deterministic
-             else dict(benchmark=True, deterministic=False))
+    from repro_torch.api import CutieProgram, get_graph
+    from repro_torch.data.pipeline import pipeline_for_net
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train import init_train_state
 
-    def once():
-        loss = cross_entropy(prog.forward_qat(tree_unflatten(params, leaves), x), y)
-        torch.autograd.grad(loss, leaves)
+    graph = dataclasses.replace(get_graph(spec[0]), qat_per_channel=True)
+    _check_width(graph, spec)
+    prog = CutieProgram(graph)
+    cfg = AdamWConfig(lr=3e-3, warmup_steps=10, total_steps=200, weight_decay=0.0)
+    pipe = pipeline_for_net(graph, batch, seed=SEED)
+    batches = [pipe.batch_at(i) for i in range(QAT_STEPS)]
+    return prog, cfg, batches, init_train_state(prog, torch.Generator().manual_seed(SEED),
+                                                device=dev)
+
+
+def _qat_captured_vs_eager(spec, batch, dev):
+    """`train`'s captured, donated QAT step against the raw eager step (the
+    function the reference wraps in ``jax.jit``) from one state on the same
+    QAT_STEPS batches: loss, every metric, param, m, v and the step counter
+    bit for bit, one capture.  Then host ms per step as `train` runs them
+    (numpy batch in, the loss read), captured and eager in turns, and a
+    `torch.profiler` window of each: device ms, kernels, busy share."""
+    from repro_torch.capture import CapturedStep
+    from repro_torch.train import make_qat_step
+    from repro_torch.tree import tree_leaves, tree_map
+
+    name = spec[0]
+    prog, cfg, batches, a = _qat_setup(spec, batch, dev)
+    b = tree_map(torch.clone, a)
+    raw = make_qat_step(prog, cfg)
+    step = CapturedStep(make_qat_step(prog, cfg, donate=True), dev, inputs=(1,))
+
+    def eager(state, nb):  # the batch moved to the card per step, as before capture
+        return raw(state, tuple(torch.from_numpy(x).to(dev) for x in nb))
+
+    for i, nb in enumerate(batches):
+        a, ma = eager(a, nb)
+        b, mb = step(b, nb)
+        for key in ma:
+            if not torch.equal(ma[key], mb[key]):
+                fail(f"train {name}: captured step {i} {key} {float(mb[key])!r} != eager "
+                     f"{float(ma[key])!r}")
+    for i, (x, y) in enumerate(zip(tree_leaves(a), tree_leaves(b))):
+        if not torch.equal(x, y):
+            fail(f"train {name}: after {QAT_STEPS} steps, state leaf {i} {tuple(x.shape)} "
+                 f"captured != eager")
+    if step.builds != 1 or not step.captured:
+        fail(f"train {name}: the step was built {step.builds} times (captured: {step.captured})")
+
+    def window(fn, state, n):
         torch.cuda.synchronize()
-
-    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False, **flags):
-        for _ in range(3):
-            once()
         t0 = time.perf_counter()
-        for _ in range(DETERMINISM_STEPS):
-            once()
-        return (time.perf_counter() - t0) / DETERMINISM_STEPS * 1e3
+        for nb in batches[:n]:
+            state, m = fn(state, nb)
+            float(m["loss"])  # train() reads each loss
+        torch.cuda.synchronize()
+        return state, (time.perf_counter() - t0) * 1e3 / n
+
+    host = {"captured": [], "eager": []}
+    for _ in range(TIMING_ROUNDS):
+        for kind in ("captured", "eager", "eager", "captured"):
+            if kind == "captured":
+                b, ms = window(step, b, QAT_STEPS)
+            else:
+                a, ms = window(eager, a, QAT_STEPS)
+            host[kind].append(ms)
+    out = {"batch": batch, "steps_compared": QAT_STEPS, "bit_equal": True,
+           "builds": step.builds, "host_ms_per_step": host}
+    for kind, fn, state in (("captured", step, b), ("eager", eager, a)):
+        n, dev_ms, top = _profile_kernels(lambda: window(fn, state, QAT_PROFILED))
+        med = float(np.median(host[kind]))
+        out[kind] = {
+            "host_ms_per_step_median": med,
+            "device_kernels_per_step": n / QAT_PROFILED if n else None,
+            "device_ms_per_step": dev_ms / QAT_PROFILED if n else None,
+            "device_busy_share": dev_ms / QAT_PROFILED / med if n else None,
+            "top_kernels_ms": [[k, ms / QAT_PROFILED] for k, ms in top] if n else None,
+        }
+    c, e = out["captured"], out["eager"]
+    print(f"[chip_smoke] train: {name} batch {batch}: captured == eager over {QAT_STEPS} "
+          f"steps, 1 capture; host ms/step captured {c['host_ms_per_step_median']:.3f} vs "
+          f"eager {e['host_ms_per_step_median']:.3f} (medians of {2 * TIMING_ROUNDS} windows "
+          f"in turns); device ms {c['device_ms_per_step']} vs {e['device_ms_per_step']}, "
+          f"busy {c['device_busy_share']} vs {e['device_busy_share']}", flush=True)
+    return out
+
+
+def _captured_step_device_ms(dev):
+    """Device ms per captured full-width ``cifar10_tnn`` QAT step (batch 32)
+    with cuDNN deterministic and not autotuned (the trainer's setting,
+    `kernels.ref.deterministic_float32`) or autotuned and free to pick any
+    algorithm, TF32 off in both; timed in turns (deterministic, autotuned,
+    autotuned, deterministic) with CUDA events, the batch on the card."""
+    import contextlib
+
+    import repro_torch.train.loop as loop
+    from repro_torch.capture import CapturedStep
+    from repro_torch.tree import tree_map
+
+    prog, cfg, batches, state = _qat_setup(TRAIN_SPATIAL, 32, dev)
+    batch = tuple(torch.from_numpy(x).to(dev) for x in batches[0])
+
+    @contextlib.contextmanager
+    def autotuned():
+        with torch.backends.cudnn.flags(enabled=True, benchmark=True, deterministic=False,
+                                        allow_tf32=False):
+            yield
+
+    steps = {}
+    for deterministic in (True, False):
+        s = tree_map(torch.clone, state)
+        step = CapturedStep(loop.make_qat_step(prog, cfg, donate=True), dev, inputs=(1,))
+        # the step enters loop.deterministic_float32; the algorithms are
+        # chosen in the eager warm-up and the capture, which replays keep
+        saved = loop.deterministic_float32
+        if not deterministic:
+            loop.deterministic_float32 = autotuned
+        try:
+            step(s, batch)
+            step(s, batch)
+        finally:
+            loop.deterministic_float32 = saved
+        steps[deterministic] = (step, s)
+    det, fast = [], []
+    for deterministic in (True, False, False, True):
+        step, s = steps[deterministic]
+        (det if deterministic else fast).append(
+            time_ms(lambda: step(s, batch), iters=DETERMINISM_STEPS, warmup=2))
+    return det, fast
 
 
 def train_path(dev):
@@ -1236,9 +1370,14 @@ def train_path(dev):
     from repro_torch.api import CutieProgram, get_graph
     from repro_torch.data.pipeline import pipeline_for_net
     from repro_torch.kernels.ternary_conv2d import ternary_conv2d_cuda
+    from repro_torch.capture import CapturedStep
+    from repro_torch.kernels.ref import deterministic_float32
+    from repro_torch.launch.ft import run_with_restarts
     from repro_torch.launch.train import SMOKE_GAP_BOUND, smoke_recipe
     from repro_torch.obs import load, validate_nesting
-    from repro_torch.train import cross_entropy, init_train_state, train
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train import (cross_entropy, init_train_state, make_qat_step, schedules,
+                                   train)
     from repro_torch.train.evaluate import eval_batches
     from repro_torch.tree import tree_leaves, tree_unflatten
 
@@ -1252,17 +1391,39 @@ def train_path(dev):
         name, per_eval = spec[0], spec[1]
         _check_width(get_graph(name), spec)
         ternary_conv2d_cuda.launches = 0
+        recorded = ternary_conv2d_cuda.recorded
         rep = train(name, seed=SEED, ckpt_dir=root / name, backend="fused",
                     device="cuda", log=quiet, **kw)
         launches = ternary_conv2d_cuda.launches
         if not rep.losses or not all(np.isfinite(rep.losses)):
             fail(f"train {name}: a loss is not finite: {rep.losses[:5]} ...")
+        if rep.step_builds != 1:
+            fail(f"train {name}: the step was captured {rep.step_builds} times in one segment")
         n_eval = kw.get("eval_batches", 4)
         # constant schedules: no segment eval, so every launch is the final
-        # eval's deployed forward
-        if rep.evals or launches != per_eval * n_eval:
-            fail(f"train {name}: {launches} K1 launches over {n_eval} eval batches; "
-                 f"the deployed forward makes {per_eval} per batch")
+        # eval's deployed forward: the eager first batch, then replays of the
+        # one capture (which recorded per_eval launches)
+        if (rep.evals or launches != per_eval * n_eval
+                or ternary_conv2d_cuda.recorded - recorded != per_eval):
+            fail(f"train {name}: {launches} K1 launches over {n_eval} eval batches, "
+                 f"{ternary_conv2d_cuda.recorded - recorded} recorded by captures; the "
+                 f"deployed forward makes {per_eval} per batch, captured once")
+        # the captured eval == the plain forwards on the same batches
+        graph = dataclasses.replace(get_graph(name), qat_per_channel=True)
+        eprog = CutieProgram(graph)
+        hq = hd = n = 0
+        with torch.no_grad(), deterministic_float32():
+            for x, y in eval_batches(pipeline_for_net(graph, kw["batch"], seed=SEED), n_eval):
+                xt = torch.from_numpy(x).to(dev)
+                yq = eprog.forward_qat(rep.params, xt, nu=rep.nu_final).argmax(-1).cpu()
+                yd = rep.deployed.forward(xt, backend="fused").argmax(-1).cpu()
+                hq += int((yq.numpy() == y).sum())
+                hd += int((yd.numpy() == y).sum())
+                n += len(y)
+        e = rep.final_eval
+        if (e.qat_accuracy, e.deployed_accuracy, e.n_examples) != (hq / n, hd / n, n):
+            fail(f"train {name}: captured eval {e.summary()} != eager eval qat {hq}/{n}, "
+                 f"deployed {hd}/{n}")
         n = len(rep.losses)
         q = max(n // 4, 1)
         e = rep.final_eval
@@ -1275,6 +1436,7 @@ def train_path(dev):
             "deployed_accuracy": e.deployed_accuracy, "gap": e.gap,
             "eval_examples": e.n_examples, "k1_launches": launches,
             "k1_launches_per_eval_batch": launches / n_eval, "restarts": rep.restarts,
+            "step_builds": rep.step_builds, "captured_eval_equals_eager": True,
         }
         print(f"[chip_smoke] train: {name} {n} steps x batch {kw['batch']}, "
               f"{rep.ms_per_step:.2f} ms/step, loss {out['nets'][name]['loss_first_quarter_mean']:.4f}"
@@ -1328,19 +1490,64 @@ def train_path(dev):
     print("[chip_smoke] train: resume on the card bit-identical (8 steps == 4 + restore + 4)",
           flush=True)
 
-    # the cost of the deterministic cuDNN settings, in turns
-    sprog = CutieProgram(dataclasses.replace(get_graph(TRAIN_SPATIAL[0]), qat_per_channel=True))
-    sstate = init_train_state(sprog, torch.Generator().manual_seed(SEED), device=dev)
-    sbatch = pipeline_for_net(sprog.graph, recipe["batch"], seed=SEED).batch_at(0)
-    det, fast = [], []
-    for deterministic in (True, False, False, True):
-        (det if deterministic else fast).append(
-            _fwd_bwd_ms(sprog, sstate["params"], sbatch, deterministic))
-    out["fwd_bwd_ms_deterministic"] = det
-    out["fwd_bwd_ms_autotuned"] = fast
-    print(f"[chip_smoke] train: {TRAIN_SPATIAL[0]} QAT forward+backward {det} ms with "
-          f"deterministic cuDNN, {fast} ms autotuned (host clock, {DETERMINISM_STEPS} "
-          f"each, in turns)", flush=True)
+    # a schedule with segments: one capture each
+    kw = dict(steps=12, batch=8, lr=1e-3, seed=SEED, ckpt_every=6, eval_batches=1,
+              nu_schedule="anneal", thresholds="learned", device="cuda", log=quiet)
+    rep = train("cifar10_tnn_smoke", ckpt_dir=root / "anneal", **kw)
+    g = get_graph("cifar10_tnn_smoke")
+    segs = schedules.merged_segments(12, schedules.resolve("anneal", g.weight_nu, 12),
+                                     schedules.constant(g.act_threshold))
+    if not (len(segs) > 1 and rep.step_builds == len(segs)):
+        fail(f"train anneal: {rep.step_builds} step captures over {len(segs)} segments")
+    out["anneal_segments"] = len(segs)
+    out["anneal_step_builds"] = rep.step_builds
+
+    # a fault injected mid-run under capture == an uninterrupted eager run
+    sprog = CutieProgram(dataclasses.replace(g, qat_per_channel=True))
+    cfg = AdamWConfig(lr=3e-3, warmup_steps=1, total_steps=8, weight_decay=0.0)
+    init = lambda: init_train_state(sprog, torch.Generator().manual_seed(2), device=dev)  # noqa: E731
+    crashed = []
+
+    def injector(step):
+        if step == 5 and not crashed:
+            crashed.append(step)
+            raise RuntimeError("simulated node failure")
+
+    def eager_step(fn):
+        return lambda s, b: fn(s, tuple(torch.from_numpy(x).to(dev) for x in b))
+
+    runs = {}
+    for kind, step_fn, inj in (
+            ("eager", eager_step(make_qat_step(sprog, cfg)), None),
+            ("captured", CapturedStep(make_qat_step(sprog, cfg, donate=True), dev,
+                                      inputs=(1,)), injector)):
+        runs[kind] = run_with_restarts(
+            lambda: step_fn, init, pipeline_for_net(sprog.graph, 8, seed=3),
+            ckpt_dir=root / f"fault_{kind}", n_steps=8, ckpt_every=4, fault_injector=inj,
+            log=quiet)
+    (clean, h_clean), (faulty, h_fault) = runs["eager"], runs["captured"]
+    if (h_fault["restarts"] != 1 or h_fault["resumed_from"] != [4]
+            or h_fault["losses"][:5] + h_fault["losses"][6:] != h_clean["losses"]):
+        fail(f"train fault under capture: {h_fault} vs uninterrupted {h_clean['losses']}")
+    for a, b in zip(tree_leaves(faulty), tree_leaves(clean)):
+        if not torch.equal(a, b):
+            fail("train fault under capture: final state != the uninterrupted eager run")
+    out["fault_restart_under_capture_bit_identical"] = True
+    print("[chip_smoke] train: anneal run captured once per segment "
+          f"({len(segs)}); a fault at step 5 under capture == the uninterrupted eager run",
+          flush=True)
+
+    # the captured step against the raw eager step at full width, timed in turns
+    out["captured"] = {spec[0]: _qat_captured_vs_eager(spec, batch, dev)
+                       for spec, batch in TRAIN_CAPTURED}
+
+    # the cost of the deterministic cuDNN settings on the captured step, in turns
+    det, fast = _captured_step_device_ms(dev)
+    out["captured_step_device_ms_deterministic"] = det
+    out["captured_step_device_ms_autotuned"] = fast
+    print(f"[chip_smoke] train: {TRAIN_SPATIAL[0]} captured QAT step {det} device ms with "
+          f"deterministic cuDNN, {fast} autotuned ({DETERMINISM_STEPS} replays each, "
+          f"in turns)", flush=True)
 
     # the launcher as a user runs it, then the trace CLI
     trace = root / "train_trace.json"
@@ -1442,44 +1649,78 @@ def _profile_kernels(fn, top: int = 5):
 
 
 def _lm_serve_run(cfg, params, dev, batch: int, prompt: int, gen):
-    """Prefill ``batch x prompt`` random tokens, then LM_DECODES greedy
-    decode steps, after a warm-up of the same; host clock around work that
-    ends in a synchronise.  Fails on non-finite logits."""
+    """Prefill ``batch x prompt`` random tokens, then LM_DECODES greedy decode
+    steps through the captured, donated step (`serve_lm`'s) and through the
+    raw eager step from one prefill: logits and the final cache bit for bit,
+    one capture.  Then windows of LM_DECODES tokens, each after a fresh
+    prefill, eager and captured in turns (eager, captured, captured, eager);
+    host clock around work that ends in a synchronise.  Fails on non-finite
+    logits."""
+    from repro_torch.capture import CapturedStep
     from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.tree import tree_leaves, tree_map
 
     prefill = make_prefill_step(cfg, prompt + LM_DECODES + 1, cache_dtype=torch.float32)
-    decode = make_decode_step(cfg)
+    eager = make_decode_step(cfg)
+    captured = CapturedStep(make_decode_step(cfg, donate=True), dev, inputs=(1,))
     tokens = torch.randint(0, cfg.vocab_size, (batch, prompt), generator=gen, device=dev)
-    first = None
-    for rep in range(2):
+
+    logits, cache = prefill(params, {"tokens": tokens})
+    cache_c = tree_map(torch.clone, cache)
+    tok_e = tok_c = torch.argmax(logits, dim=-1)[:, None]
+    for i in range(LM_DECODES):
+        le, cache = eager(params, tok_e, cache)
+        lc, cache_c = captured(params, tok_c, cache_c)
+        if not torch.equal(le, lc):
+            fail(f"lm {cfg.name}: captured decode step {i} logits != eager, max|diff| "
+                 f"{(le - lc).abs().max().item():.3e}")
+        tok_e, tok_c = torch.argmax(le, dim=-1)[:, None], torch.argmax(lc, dim=-1)[:, None]
+    for a, b in zip(tree_leaves(cache), tree_leaves(cache_c)):
+        if not torch.equal(a, b):
+            fail(f"lm {cfg.name}: cache after {LM_DECODES} captured decode steps != eager")
+    if captured.builds != 1 or not captured.captured:
+        fail(f"lm {cfg.name}: the decode step was built {captured.builds} times")
+    del cache, cache_c
+
+    prefill_ms, decode_ms = [], {"eager": [], "captured": []}
+    for kind in ("eager", "captured", "captured", "eager"):
+        step = captured if kind == "captured" else eager
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         logits, cache = prefill(params, {"tokens": tokens})
         torch.cuda.synchronize()
-        prefill_ms = (time.perf_counter() - t0) * 1e3
-        first = prefill_ms if first is None else first
-        cache_in = _tree_bytes(cache)
+        prefill_ms.append((time.perf_counter() - t0) * 1e3)
         finite = torch.isfinite(logits).all()
         tok = torch.argmax(logits, dim=-1)[:, None]
         t0 = time.perf_counter()
         for _ in range(LM_DECODES):
-            logits, cache = decode(params, tok, cache)
+            logits, cache = step(params, tok, cache)
             finite &= torch.isfinite(logits).all()
             tok = torch.argmax(logits, dim=-1)[:, None]
         torch.cuda.synchronize()
-        decode_ms = (time.perf_counter() - t0) * 1e3 / LM_DECODES
+        decode_ms[kind].append((time.perf_counter() - t0) * 1e3 / LM_DECODES)
         if not bool(finite):
             fail(f"lm {cfg.name}: non-finite logits (batch {batch}, prompt {prompt})")
-    kernels, device_ms, top = _profile_kernels(lambda: decode(params, tok, cache))
+    cache_in = _tree_bytes(cache)
+    prof = {}
+    for kind, step in (("captured", captured), ("eager", eager)):
+        n, ms, top = _profile_kernels(lambda: step(params, tok, cache))
+        prof[kind] = {"device_kernels_per_decode_step": n, "device_ms_per_decode_step": ms,
+                      "top_kernels_ms_per_decode_step": top}
     pf_kernels, pf_device_ms, _ = _profile_kernels(lambda: prefill(params, {"tokens": tokens}))
     kv = prompt + LM_DECODES
+    med = {k: float(np.median(v)) for k, v in decode_ms.items()}
     return {
         "batch": batch, "prompt": prompt, "decode_steps": LM_DECODES,
-        "prefill_ms_first_call": first, "prefill_ms": prefill_ms,
+        "captured_equals_eager": True, "decode_builds": captured.builds,
+        "prefill_ms_first_call": prefill_ms[0], "prefill_ms": float(np.median(prefill_ms[1:])),
         "device_kernels_per_prefill": pf_kernels, "device_ms_per_prefill": pf_device_ms,
-        "decode_ms_per_token": decode_ms,
-        "device_kernels_per_decode_step": kernels, "device_ms_per_decode_step": device_ms,
-        "top_kernels_ms_per_decode_step": top,
+        "decode_ms_per_token": med["captured"], "decode_ms_per_token_eager": med["eager"],
+        "decode_ms_per_token_turns": decode_ms,
+        "device_kernels_per_decode_step": prof["captured"]["device_kernels_per_decode_step"],
+        "device_ms_per_decode_step": prof["captured"]["device_ms_per_decode_step"],
+        "top_kernels_ms_per_decode_step": prof["captured"]["top_kernels_ms_per_decode_step"],
+        "eager": prof["eager"],
         "prefill_bound": _lm_bound(cfg, params, 0, cache_in, batch, prompt, prompt),
         "decode_bound": _lm_bound(cfg, params, cache_in, cache_in, batch, 1, kv),
     }
@@ -1624,35 +1865,46 @@ def lm_path(dev):
         }
         print(f"[chip_smoke] lm: python {' '.join(argv)} exit 0: {line}", flush=True)
 
-    # full width, in-process
-    for arch in (LM_SERVED, LM_SSM):
-        cfg = get_config(arch)
+    # full width, in-process: the launcher's defaults (batch 4, prompt 32) on
+    # gemma-2b, plain then 2-bit packed, with the long prefill and the float32
+    # consistency on the plain one; a 4096-token prefill, then decode, on mamba2
+    for key, arch, quant in ((LM_SERVED, LM_SERVED, "none"),
+                             (f"{LM_SERVED}/ternary_packed", LM_SERVED, "ternary_packed"),
+                             (LM_SSM, LM_SSM, "none")):
+        cfg = get_config(arch, quant=quant)
         gen = torch.Generator(device=dev).manual_seed(SEED)
         torch.cuda.synchronize(dev)
         torch.cuda.reset_peak_memory_stats(dev)
         params = init_params(cfg, gen, dtype=torch.float32, device=dev)
         rep = {"n_params": cfg.n_params(), "param_bytes": _tree_bytes(params),
-               "dtype": cfg.dtype}
-        if arch == LM_SERVED:   # the launcher's defaults, then the long prefill
+               "dtype": cfg.dtype, "quant": quant}
+        if arch == LM_SERVED:
             rep["serve"] = _lm_serve_run(cfg, params, dev, 4, 32, gen)
-            rep["long_prefill"] = _lm_long_prefill(cfg, params, dev, gen)
-        else:                   # a 4096-token prefill, then decode
+            if quant == "none":
+                rep["long_prefill"] = _lm_long_prefill(cfg, params, dev, gen)
+        else:
             rep["serve"] = _lm_serve_run(cfg, params, dev, 1, LM_LONG, gen)
-        rep["consistency_float32"] = _lm_consistency(cfg, params, dev, gen)
+        if quant == "none":
+            rep["consistency_float32"] = _lm_consistency(cfg, params, dev, gen)
         rep["peak_memory_bytes"] = torch.cuda.max_memory_allocated(dev)
-        out["full_width"][arch] = rep
+        out["full_width"][key] = rep
         sv, lp = rep["serve"], rep.get("long_prefill")
         long = (f"; {LM_LONG}-token prefill {lp['prefill_ms']:.2f} ms (bound "
                 f"{lp['bound']['bound_ms']:.3f} ms, {lp['bound']['bound_by']})" if lp else "")
-        print(f"[chip_smoke] lm: {arch} ({rep['n_params'] / 1e9:.2f} B params): prefill "
+        cons = (f"; float32 prefill->decode max|diff| "
+                f"{rep['consistency_float32']['max_abs_err']:.2e}"
+                if "consistency_float32" in rep else "")
+        print(f"[chip_smoke] lm: {key} ({rep['n_params'] / 1e9:.2f} B params): prefill "
               f"{sv['batch']}x{sv['prompt']} {sv['prefill_ms']:.2f} ms (bound "
               f"{sv['prefill_bound']['bound_ms']:.3f} ms, {sv['prefill_bound']['bound_by']}), "
-              f"decode {sv['decode_ms_per_token']:.3f} ms/token over "
-              f"{sv['device_kernels_per_decode_step']} device kernels a step (bound "
+              f"decode captured == eager, 1 capture; {sv['decode_ms_per_token']:.3f} ms/token "
+              f"captured vs {sv['decode_ms_per_token_eager']:.3f} eager (medians, in turns), "
+              f"device {sv['device_ms_per_decode_step']} ms over "
+              f"{sv['device_kernels_per_decode_step']} kernels a step captured, "
+              f"{sv['eager']['device_ms_per_decode_step']} ms over "
+              f"{sv['eager']['device_kernels_per_decode_step']} eager (bound "
               f"{sv['decode_bound']['bound_ms']:.3f} ms, {sv['decode_bound']['bound_by']})"
-              f"{long}; float32 prefill->decode max|diff| "
-              f"{rep['consistency_float32']['max_abs_err']:.2e}; peak "
-              f"{rep['peak_memory_bytes'] / 2**30:.2f} GiB", flush=True)
+              f"{long}{cons}; peak {rep['peak_memory_bytes'] / 2**30:.2f} GiB", flush=True)
         del params
         torch.cuda.empty_cache()
 
@@ -2180,7 +2432,8 @@ def main() -> int:
         "launches_quickstart": qs_launches["ternary_conv2d"],
         "launches_fleet": fleet["ungated"]["k1_launches"],
         "launches_train": k1_train,
-        "launches_train_cover": "the final deployed eval of the full-width cifar10_tnn run",
+        "launches_train_cover": "the final deployed eval of the full-width cifar10_tnn run "
+                                "(the eager first batch, then replays of its capture)",
         "launches_lm_train": lm_train_report["kernel_launches"]["ternary_conv2d"],
         "launches_dryrun": dryrun_report["kernel_launches"]["ternary_conv2d"],
         "launches_shard": k1_shard,

@@ -4,7 +4,10 @@ Counterpart of `examples/ternary_llm_decode.py`.
 LLM decode is memory-bound: ``ternary_packed`` weights move 8x fewer bytes
 per token than bf16.  This example builds the reduced ``gemma-2b`` with
 ``quant='ternary_packed'`` (uint8 storage, four trits a byte), prefills a
-batch of prompts and decodes greedily, on the card by default.
+batch of prompts and decodes greedily, on the card by default.  As the
+reference jits its decode step with the cache donated, the decode step
+donates the cache and is captured once as a CUDA graph on the card, then
+replayed per token (`repro_torch.capture.CapturedStep`).
 
     PYTHONPATH=src python examples/ternary_llm_decode_torch.py [--tokens 12]
     PYTHONPATH=src python examples/ternary_llm_decode_torch.py --device cpu
@@ -18,6 +21,7 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
 
+from repro_torch.capture import CapturedStep  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.device import resolve_device  # noqa: E402
 from repro_torch.launch.steps import make_decode_step, make_prefill_step  # noqa: E402
@@ -44,7 +48,7 @@ print(f"[decode] {cfg.name}: {packed} packed-uint8 bytes "
       f"(= {packed*4} ternary weights), {dense_f} float params (norms/embeds)")
 
 prefill = make_prefill_step(cfg, args.prompt_len + args.tokens, cache_dtype=torch.float32)
-decode = make_decode_step(cfg)
+decode = CapturedStep(make_decode_step(cfg, donate=True), device, inputs=(1,))
 
 
 def sync():

@@ -115,8 +115,10 @@ class _STEActs(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, threshold):
         ctx.threshold_is_tensor = isinstance(threshold, torch.Tensor)
-        t = threshold if ctx.threshold_is_tensor else torch.tensor(
-            float(threshold), dtype=x.dtype, device=x.device)
+        # a fill on the device, not a tensor made from Python data: no
+        # host-to-device copy inside a captured step
+        t = threshold if ctx.threshold_is_tensor else torch.full(
+            (), float(threshold), dtype=x.dtype, device=x.device)
         ctx.save_for_backward(x, t)
         return ternary_quantize_acts(x, threshold=threshold)
 
@@ -135,7 +137,7 @@ class _STEActs(torch.autograd.Function):
         else:
             n = g.numel() // t.numel()
             dt = -contrib.sum(dim=tuple(range(contrib.ndim - t.ndim))).reshape(t.shape)
-        dt = dt / torch.sqrt(torch.tensor(float(n), dtype=g.dtype, device=g.device))
+        dt = dt / torch.sqrt(torch.full((), float(n), dtype=g.dtype, device=g.device))
         return dx, dt.to(t.dtype)
 
 

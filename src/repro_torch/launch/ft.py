@@ -95,7 +95,9 @@ def run_with_restarts(
     """Supervised training loop: checkpoint/restart with exactly-once data.
 
     ``fault_injector(step)`` raises to simulate node failure (tests use this
-    to verify the restart path end-to-end on one host).
+    to verify the restart path end-to-end on one host).  A restore hands the
+    step freshly restored tensors: a captured, donating step
+    (`repro_torch.capture.CapturedStep`) copies them into the state it holds.
     Returns (final_state, history dict).
     """
     restarts = 0

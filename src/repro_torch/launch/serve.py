@@ -5,7 +5,12 @@ CUTIE multi-sensor streaming (``--dvs``) and multi-tenant fleet serving
 LM serving (`serve_lm`): prefill a batch of random prompts, then decode
 greedily with the KV/SSM cache, and print the reference's two ``[serve]``
 lines (prefill and decode times, the card synchronised before each clock
-read; the sampled tokens).  Exits non-zero on non-finite logits.
+read; the sampled tokens).  Exits non-zero on non-finite logits.  As the
+reference jits its decode step with the cache donated, the decode step here
+donates the cache and is a `repro_torch.capture.CapturedStep`: on the card
+the first token runs eagerly and is captured, every later token is one
+replay, each step's token column copied into the step's static input.
+Prefill, one call per batch of prompts, runs eagerly.
 
     python -m repro_torch.launch.serve --arch gemma-2b                    # full width, on the card
     python -m repro_torch.launch.serve --arch gemma-2b --quant ternary_packed
@@ -78,6 +83,7 @@ from repro_torch.device import resolve_device
 def serve_lm(args) -> int:
     """Batched prefill + greedy decode of ``--arch`` with random weights
     (seed ``--seed``).  Returns 0, or 1 when any logits are not finite."""
+    from repro_torch.capture import CapturedStep
     from repro_torch.configs import get_config
     from repro_torch.launch.mesh import make_local_mesh
     from repro_torch.launch.sharding import ShardingRules
@@ -96,7 +102,8 @@ def serve_lm(args) -> int:
     params = init_params(cfg, gen, dtype=torch.float32, device=device)
     prefill = make_prefill_step(cfg, args.prompt_len + args.tokens, shard=shard,
                                 cache_dtype=torch.float32)
-    decode = make_decode_step(cfg, shard=shard)
+    decode = CapturedStep(make_decode_step(cfg, shard=shard, donate=True), device,
+                          inputs=(1,))
     batch = {"tokens": torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
                                      generator=gen, device=device)}
     if cfg.frontend == "vision":

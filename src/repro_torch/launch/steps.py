@@ -5,10 +5,12 @@ The steps are plain Python over trees of tensors (no compilation).  The
 train step takes gradients with `torch.autograd.grad` (the reference's
 ``jax.value_and_grad``); ``make_train_step(..., donate=True)`` is the
 counterpart of ``jax.jit(step, donate_argnums=(0,))``: the optimizer writes
-params, m and v in place and the caller must not reuse the old state.  With
-``donate=False`` the step leaves its input state untouched.  The serving
-steps run without autograd; a decode step returns a new cache tree (the
-reference's donation of the decode cache has no counterpart).
+params, m, v and the step counter in place and the caller must not reuse the
+old state.  With ``donate=False`` the step leaves its input state untouched.
+The serving steps run without autograd; ``make_decode_step(..., donate=True)`` is the
+counterpart of ``jax.jit(decode, donate_argnums=(2,))``: the cache is written
+in place (its addresses never change, so `repro_torch.capture.CapturedStep`
+can capture the step), and without ``donate`` the step returns a new cache.
 
 ``train_state_specs`` and ``input_specs`` build on the meta device: shapes
 and dtypes, no allocation.
@@ -21,9 +23,15 @@ import torch
 
 from repro_torch.models.config import ModelConfig, ShapeConfig
 from repro_torch.models.model import cache_spec, forward, init_cache, init_params, lm_loss
-from repro_torch.optim.adamw import AdamWConfig, AdamWState, adamw_init, adamw_update
+from repro_torch.optim.adamw import (
+    AdamWConfig,
+    AdamWState,
+    adamw_init,
+    adamw_update,
+    distinct_grads,
+)
 from repro_torch.optim.compress import compress_with_feedback, decompress, init_residuals
-from repro_torch.tree import tree_leaves, tree_unflatten
+from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 
 class TrainState(NamedTuple):
@@ -78,18 +86,10 @@ def value_and_grad(cfg: ModelConfig, params, batch: Dict, *, shard=None):
     )
     it = iter(torch.autograd.grad(loss, [x for x in req if x.requires_grad],
                                   allow_unused=True, materialize_grads=True))
-    grads, seen = [], set()
-    for x in req:
-        if not x.requires_grad:
-            grads.append(torch.zeros((), dtype=torch.float32, device=x.device))
-            continue
-        g = next(it)
-        if g.untyped_storage().data_ptr() in seen or not g.is_contiguous():
-            g = g.clone(memory_format=torch.contiguous_format)
-        seen.add(g.untyped_storage().data_ptr())
-        grads.append(g)
+    grads = [next(it) if x.requires_grad
+             else torch.zeros((), dtype=torch.float32, device=x.device) for x in req]
     metrics = {k: v.detach() for k, v in metrics.items()}
-    return (loss.detach(), metrics), tree_unflatten(params, grads)
+    return (loss.detach(), metrics), tree_unflatten(params, distinct_grads(grads))
 
 
 def make_train_step(
@@ -172,11 +172,17 @@ def make_prefill_step(cfg: ModelConfig, max_len: int, *, shard=None,
     return prefill_step
 
 
-def make_decode_step(cfg: ModelConfig, *, shard=None) -> Callable:
-    """(params, tokens [B,1], cache) -> (logits [B,V], cache)."""
+def make_decode_step(cfg: ModelConfig, *, shard=None, donate: bool = False) -> Callable:
+    """(params, tokens [B,1], cache) -> (logits [B,V], cache).  With
+    ``donate=False`` the given cache is left untouched and a new one is
+    returned; ``donate=True`` is the counterpart of ``donate_argnums=(2,)``:
+    every cache leaf, ``len`` included, is written in place and the returned
+    cache is the given one (bit-equal to ``donate=False``)."""
 
     @torch.no_grad()
     def decode_step(params, tokens, cache):
+        if not donate:
+            cache = tree_map(torch.clone, cache)
         out = forward(params, cfg, tokens, mode="decode", cache=cache, shard=shard)
         return out.logits[:, 0, :], out.cache
 

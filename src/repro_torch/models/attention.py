@@ -5,8 +5,10 @@ Counterpart of `repro.models.attention` (inference: no custom backward).
 The chunked path keeps the score matrix at [.., q_chunk, kv_chunk], so a
 long prefill never materializes an S x S score tensor; it is taken for
 causal S >= 4096 and encoder S >= 2048, as in the reference.  Decode writes
-the cache with a masked select at ``cache_len`` (the reference's choice, so
-the written cache is the same) and reads it with a masked softmax.
+the new position into the cache it is given, in place, at the device index
+``cache_len`` (the reference's masked select writes the same values into a
+new cache; `launch.steps.make_decode_step` copies the cache first unless it
+donates it), and reads it with a masked softmax.
 """
 from __future__ import annotations
 
@@ -182,8 +184,9 @@ def gqa_forward(
 ) -> Tuple[torch.Tensor, Optional[dict]]:
     """x: [B, S, D].  Returns (out [B,S,D], updated cache or None).
 
-    Prefill (cache given, S>1): fills cache[0:S], returns it.
-    Decode (cache given, S==1): reads cache[:cache_len], writes at cache_len.
+    Prefill (cache given, S>1): fills a copy's cache[0:S], returns it.
+    Decode (cache given, S==1): writes position cache_len of the given cache
+    in place, reads cache[:cache_len + 1], returns the given cache.
     """
     b, s, d = x.shape
     h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -198,11 +201,11 @@ def gqa_forward(
     if cache is not None and s == 1:
         # ---- decode: append then attend over the cache ----
         idx = torch.as_tensor(cache_len, device=x.device).reshape(())
-        kc = _cache_write(cache["k"], k, idx)
-        vc = _cache_write(cache["v"], v, idx)
-        o = decode_attention(q[:, 0], kc, vc, idx + 1, scale)
+        _cache_write_(cache["k"], k, idx)
+        _cache_write_(cache["v"], v, idx)
+        o = decode_attention(q[:, 0], cache["k"], cache["v"], idx + 1, scale)
         o = o.reshape(b, 1, h * hd)
-        new_cache = {"k": kc, "v": vc}
+        new_cache = cache
     else:
         if causal:
             if s >= 4096:
@@ -227,12 +230,16 @@ def gqa_forward(
     return out, new_cache
 
 
-def _cache_write(cache, kv, idx):
-    """Write one step at position idx.  cache: [B,S,KV,hd], kv: [B,1,KV,hd].
-    A masked select, as in the reference: the index stays on the device."""
+def _cache_write_(cache, new, idx):
+    """Write one step at sequence position ``idx`` (a 0-d device tensor) of
+    ``cache`` [B, S, ...] in place; ``new`` is [B, 1, ...].  The index stays
+    on the device, so a captured step writes where the cache length says.
+    Past the end (``idx >= S``) nothing changes, as the reference's masked
+    select writes nothing there: the last position is written with itself."""
     s = cache.shape[1]
-    hit = (torch.arange(s, device=cache.device) == idx)[None, :, None, None]
-    return torch.where(hit, kv.to(cache.dtype), cache)
+    pos = torch.clamp(idx, max=s - 1).reshape(1).to(torch.long)
+    keep = cache.index_select(1, pos)
+    cache.index_copy_(1, pos, torch.where(idx < s, new.to(cache.dtype), keep))
 
 
 def _cache_fill(cache, kv):
@@ -322,10 +329,10 @@ def mla_forward(
     new_cache = None
     if cache is not None and s == 1:
         idx = torch.as_tensor(cache_len, device=x.device).reshape(())
-        hit = (torch.arange(cache["ckv"].shape[1], device=x.device) == idx)[None, :, None]
-        ckv_c = torch.where(hit, ckv.to(cache["ckv"].dtype), cache["ckv"])
-        kr_c = torch.where(hit, k_rope.to(cache["krope"].dtype), cache["krope"])
-        new_cache = {"ckv": ckv_c, "krope": kr_c}
+        _cache_write_(cache["ckv"], ckv, idx)
+        _cache_write_(cache["krope"], k_rope, idx)
+        ckv_c, kr_c = cache["ckv"], cache["krope"]
+        new_cache = cache
         s_kv = ckv_c.shape[1]
         valid = torch.arange(s_kv, device=x.device)[None] < (idx + 1)  # [1, S]
         if absorbed_decode:

@@ -14,6 +14,7 @@ device they allocate nothing and give the tree's shapes and dtypes.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional, Tuple
 
@@ -60,10 +61,13 @@ def einsum(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.einsum(eq, a.to(dt), b.to(dt))
 
 
+@functools.lru_cache(maxsize=256)
 def weak_scalar(c: float, dtype: torch.dtype) -> float:
     """``c`` rounded to ``dtype``: a Python scalar meets a bf16 array in the
     reference as a weakly typed bf16 value, so ``x * weak_scalar(c, x.dtype)``
-    rounds as the reference's ``x * c`` does."""
+    rounds as the reference's ``x * c`` does.  Cached per ``(c, dtype)``: a
+    step calls it for the same few constants every time, and the rounding
+    makes a tensor from Python data and reads it back."""
     return float(torch.tensor(c, dtype=dtype))
 
 

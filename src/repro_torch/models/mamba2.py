@@ -144,7 +144,8 @@ def mamba_forward(
     *,
     state: Optional[dict] = None,
 ) -> Tuple[torch.Tensor, Optional[dict]]:
-    """x: [B, T, D].  With ``state`` and T==1: O(1) decode step.
+    """x: [B, T, D].  With ``state`` and T==1: O(1) decode step, which
+    writes the given state in place and returns it.
 
     state = {"h": [B,H,P,N] f32, "conv_x": [B,K-1,di], "conv_B"/"conv_C": [B,K-1,N]}.
     """
@@ -175,7 +176,10 @@ def mamba_forward(
         )
         y = torch.einsum("bn,bhpn->bhp", cm, h_new) + p["D"][None, :, None] * xs
         y = y.reshape(bsz, 1, di)
-        new_state = {"h": h_new, "conv_x": hx[:, 1:], "conv_B": hb[:, 1:], "conv_C": hc[:, 1:]}
+        for name, v in (("h", h_new), ("conv_x", hx[:, 1:]), ("conv_B", hb[:, 1:]),
+                        ("conv_C", hc[:, 1:])):
+            state[name].copy_(v)
+        new_state = state
     else:
         xs = silu(
             _causal_depthwise_conv(xin, p["conv_x_w"], p["conv_x_b"], cfg.use_tcn_mapping)

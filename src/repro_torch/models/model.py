@@ -25,6 +25,9 @@ only its input is kept for the backward, which recomputes the layer.
 
 Modes: ``train`` (logits of every position), ``prefill`` (fills caches),
 ``decode`` (one token; O(1)-state for SSM, cache-append for attention).
+Decode writes the cache it is given in place — each layer into its slice of
+the stacked segment cache, ``len`` advanced by one — and returns that same
+cache; `launch.steps.make_decode_step` copies it first unless it donates it.
 ``shard`` is accepted and is the identity (the port runs on one card).
 """
 from __future__ import annotations
@@ -238,6 +241,10 @@ def _segment_forward(
             new_caches.append(layer_cache)
     if cache is None:
         return x, None, aux
+    if cache_len is not None:
+        # decode wrote each layer's cache in place, into its slice (a view)
+        # of the stacked segment cache
+        return x, cache, aux
     return x, _stack_trees(new_caches), aux
 
 
@@ -391,13 +398,13 @@ def forward(
             cap = weak_scalar(cfg.logit_softcap, logits.dtype)
             logits = torch.tanh(logits / cap) * cap
 
-    if new_cache is not None:
-        new_cache["len"] = (cache["len"] + 1 if mode == "decode"
-                            else torch.tensor(seq, dtype=torch.int32, device=x.device))
+    if mode == "decode":
+        cache["len"].add_(1)
+        new_cache = cache
+    elif new_cache is not None:
+        new_cache["len"] = torch.tensor(seq, dtype=torch.int32, device=x.device)
         if cfg.is_encdec:
-            new_cache["enc_out"] = (
-                enc_out.to(cache["enc_out"].dtype) if mode != "decode" else cache["enc_out"]
-            )
+            new_cache["enc_out"] = enc_out.to(cache["enc_out"].dtype)
 
     return ModelOutput(logits=logits, cache=new_cache, aux_loss=aux_total)
 

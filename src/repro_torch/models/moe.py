@@ -101,7 +101,8 @@ def _moe_chunk(p, cfg: ModelConfig, x: torch.Tensor) -> Tuple[torch.Tensor, torc
 
     # Switch-style aux loss: mean prob per expert * fraction routed per expert
     flat_ids = expert_ids.reshape(b, s * k)                        # [B, S*k]
-    onehot = F.one_hot(flat_ids, e).to(torch.int32)                # [B, S*k, E]
+    # == F.one_hot(flat_ids, e), whose range check reads the ids on the host
+    onehot = (flat_ids[..., None] == torch.arange(e, device=x.device)).to(torch.int32)
     me = probs.mean(dim=(0, 1))                                    # [E]
     ce = onehot.sum(dim=(0, 1)).to(torch.float32) / (b * s * k)
     aux = e * torch.sum(me * ce)

@@ -14,16 +14,17 @@ Plain functions over the params tree (dicts, lists and tensors), not
 Every function returns new tensors and leaves its inputs untouched, so a
 train state can be checkpointed or compared at any step — except
 ``adamw_update(..., donate=True)``, the counterpart of a jitted step that
-donates its state: it scales the gradients and writes params, m and v in
-place, by the same operations in the same order, so its results are the
-same bits.  A full-width LM state (params + m + v) is three times the
-params; without donation the old and the new state would be alive at once.
+donates its state: it scales the gradients and writes params, m, v and the
+step counter in place, by the same operations in the same order, so its
+results are the same bits.  A full-width LM state (params + m + v) is three
+times the params; without donation the old and the new state would be alive
+at once.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, NamedTuple, Tuple
+from typing import Any, List, NamedTuple, Tuple
 
 import torch
 
@@ -75,6 +76,19 @@ def clip_by_global_norm(grads, max_norm: float, *, donate: bool = False):
     return tree_map(lambda g: (g * scale).to(g.dtype), grads), gn
 
 
+def distinct_grads(grads: List[torch.Tensor]) -> List[torch.Tensor]:
+    """``grads`` with every tensor its own contiguous storage: autograd may
+    hand two inputs one tensor, or an expanded one, and a donating update
+    scales each gradient in place."""
+    seen, out = set(), []
+    for g in grads:
+        if g.untyped_storage().data_ptr() in seen or not g.is_contiguous():
+            g = g.clone(memory_format=torch.contiguous_format)
+        seen.add(g.untyped_storage().data_ptr())
+        out.append(g)
+    return out
+
+
 def adamw_init(params) -> AdamWState:
     """Zero moments like ``params`` — float32, and a scalar zero for a
     non-float leaf (frozen packed weights take no update)."""
@@ -96,10 +110,11 @@ def adamw_update(
     cfg: AdamWConfig, params, grads, state: AdamWState, *, donate: bool = False
 ) -> Tuple[Any, AdamWState, dict]:
     """One AdamW step: ``(new params, new state, {"lr", "grad_norm"})``.
-    With ``donate`` the grads, params, m and v are overwritten and the
-    returned trees hold the same tensors (bit-equal to ``donate=False``)."""
+    With ``donate`` the grads, params, m, v and the step counter are
+    overwritten and the returned trees hold the same tensors (bit-equal to
+    ``donate=False``), so a captured step finds its state where it left it."""
     grads, gn = clip_by_global_norm(grads, cfg.grad_clip, donate=donate)
-    step = state.step + 1
+    step = state.step.add_(1) if donate else state.step + 1
     lr = lr_schedule(cfg, step)
     b1c = 1 - cfg.b1 ** step.to(torch.float32)
     b2c = 1 - cfg.b2 ** step.to(torch.float32)

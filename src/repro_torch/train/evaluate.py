@@ -26,6 +26,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from repro_torch.capture import CapturedStep
 from repro_torch.kernels.ref import deterministic_float32
 from repro_torch.tree import tree_leaves
 
@@ -83,17 +84,22 @@ def evaluate(
     held-out batches on the params' device, in the training numerics
     (`kernels.ref.deterministic_float32`).  ``deployed`` defaults to
     quantizing ``params`` fresh, calibrated on the first eval batch (the
-    recommended deploy recipe)."""
+    recommended deploy recipe).  Where the reference jits both forwards per
+    call, each is a `repro_torch.capture.CapturedStep` here: on the card the
+    first batch runs eagerly and is captured, the others replay, each batch
+    copied into the forward's one static input."""
     dev = tree_leaves(params)[0].device
     batches = [(torch.from_numpy(np.asarray(x)).to(dev), np.asarray(y))
                for x, y in eval_batches(pipeline, n_batches)]
     if deployed is None:
         deployed = prog.quantize(params, calib=batches[0][0], nu=nu)
+    qat_fwd = CapturedStep(lambda x: prog.forward_qat(params, x, nu=nu), dev, inputs=(0,))
+    dep_fwd = CapturedStep(lambda x: deployed.forward(x, backend=backend), dev, inputs=(0,))
     hits_q = hits_d = total = 0
     with torch.no_grad(), deterministic_float32():
         for x, y in batches:
-            yq = prog.forward_qat(params, x, nu=nu).argmax(-1).cpu().numpy()
-            yd = deployed.forward(x, backend=backend).argmax(-1).cpu().numpy()
+            yq = qat_fwd(x).argmax(-1).cpu().numpy()
+            yd = dep_fwd(x).argmax(-1).cpu().numpy()
             hits_q += int((yq == y).sum())
             hits_d += int((yd == y).sum())
             total += y.shape[0]

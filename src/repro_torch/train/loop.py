@@ -30,10 +30,15 @@ Recipe (CUTIE / TWN lineage), the reference's:
 Numerics: every step, the calibration and the eval run under
 `kernels.ref.deterministic_float32` — float32 without TF32, cuDNN's
 deterministic algorithms, no autotuning — so two runs from one seed give
-the same bits and a resumed run equals an uninterrupted one.  The data
-pipelines yield numpy batches; each step moves its batch to the params'
-device.  Where the reference re-jits its step per schedule segment, the
-port builds one step closure per segment.
+the same bits and a resumed run equals an uninterrupted one.
+
+Where the reference runs ``jax.jit(step, donate_argnums=(0,))``, re-jitted
+per schedule segment, `train` builds one ``make_qat_step(..., donate=True)``
+per segment and wraps it in a `repro_torch.capture.CapturedStep`: on the
+card the first step runs eagerly and is captured as a CUDA graph, every
+later step is one replay.  The state is written in place; each numpy batch
+is copied into the step's static, pinned-staged device buffers; a restore
+after a fault is copied into the step's state (`launch.ft`).
 """
 from __future__ import annotations
 
@@ -43,7 +48,6 @@ import time
 from pathlib import Path
 from typing import Dict, List, Optional, Tuple
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -54,7 +58,8 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels.ref import deterministic_float32
 from repro_torch.launch.ft import run_with_restarts
 from repro_torch.obs.tracer import NULL_TRACER
-from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_update
+from repro_torch.capture import CapturedStep
+from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_update, distinct_grads
 from repro_torch.train import schedules
 from repro_torch.train.evaluate import EvalReport, evaluate
 from repro_torch.tree import tree_leaves, tree_unflatten
@@ -74,32 +79,29 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     return -torch.mean(torch.gather(logp, 1, labels.long()[:, None]))
 
 
-def _on(a, dev: torch.device) -> torch.Tensor:
-    """A batch array (numpy or tensor) as a tensor on ``dev``."""
-    t = a if isinstance(a, torch.Tensor) else torch.from_numpy(np.asarray(a))
-    return t.to(dev)
-
-
 def make_qat_step(
     prog: CutieProgram,
     opt_cfg: AdamWConfig,
     *,
     nu: Optional[float] = None,
+    donate: bool = False,
 ):
     """One QAT train step: ``(state, (x, y)) -> (state, metrics)``.
 
     ``state`` is the ``{"params", "opt"}`` dict from `init_train_state`;
-    the batch may be numpy or tensors and is moved to the params' device.
-    Metrics are 0-d tensors: ``loss``, ``accuracy`` (train batch),
-    ``grad_norm`` and ``lr``.  ``nu`` is fixed per step closure — the loop
-    builds one per schedule segment.  The step returns a new state and
-    leaves the one it was given untouched."""
+    the batch is tensors on the params' device (numpy arrays are taken as
+    CPU tensors).  Metrics are 0-d tensors: ``loss``, ``accuracy`` (train
+    batch), ``grad_norm`` and ``lr``.  ``nu`` is fixed per step closure —
+    the loop builds one per schedule segment.  With ``donate=False`` the
+    step returns a new state and leaves the one it was given untouched;
+    ``donate=True`` is the counterpart of ``donate_argnums=(0,)``: params,
+    m, v and the step counter are written in place, bit-equal to
+    ``donate=False``, and the returned state holds the given tensors."""
 
     def step(state: Dict, batch):
         params = state["params"]
         leaves = tree_leaves(params)
-        dev = leaves[0].device
-        x, y = _on(batch[0], dev), _on(batch[1], dev)
+        x, y = torch.as_tensor(batch[0]), torch.as_tensor(batch[1])
         diff = [p.detach().requires_grad_(p.is_floating_point()) for p in leaves]
         with deterministic_float32():
             logits = prog.forward_qat(tree_unflatten(params, diff), x, nu=nu)
@@ -112,7 +114,8 @@ def make_qat_step(
                 grads.append(torch.zeros_like(p) if g is None else g)
             with torch.no_grad():
                 new_params, opt, info = adamw_update(
-                    opt_cfg, params, tree_unflatten(params, grads), state["opt"])
+                    opt_cfg, params, tree_unflatten(params, distinct_grads(grads)),
+                    state["opt"], donate=donate)
                 acc = (logits.argmax(-1) == y.long()).to(torch.float32).mean()
         metrics = {"loss": loss.detach(), "accuracy": acc, **info}
         return {"params": new_params, "opt": opt}, metrics
@@ -146,6 +149,7 @@ class TrainReport:
     learned_thresholds: Optional[Dict]      # {"conv": [...], "tcn": [...]} or None
     params: Dict                            # trained float params
     deployed: object                        # DeployedProgram (packed tables)
+    step_builds: int = 0                    # step captures (one per segment that ran)
 
     @property
     def ms_per_step(self) -> float:
@@ -279,7 +283,7 @@ def train(
     tr = tracer if tracer is not None else NULL_TRACER
     losses: List[float] = []
     evals: List[Tuple[int, EvalReport]] = []
-    restarts = 0
+    restarts = step_builds = 0
     state = None
     t0 = time.time()
     segs = schedules.merged_segments(steps, nu_sched, th_sched)
@@ -291,7 +295,8 @@ def train(
             else dataclasses.replace(graph, act_threshold=th_v)
         )
         seg_prog = CutieProgram(seg_graph)
-        step_fn = make_qat_step(seg_prog, opt_cfg, nu=nu_v)
+        step_fn = CapturedStep(make_qat_step(seg_prog, opt_cfg, nu=nu_v, donate=True),
+                               dev, inputs=(1,))
         if len(segs) > 1:
             log(f"[train] segment {si + 1}/{len(segs)}: steps [{a}, {b}) "
                 f"nu={nu_v:.3f} threshold="
@@ -306,6 +311,7 @@ def train(
                 )
             losses += hist["losses"]
             restarts += hist["restarts"]
+            step_builds += step_fn.builds
             # segment-boundary eval (the final eval follows below);
             # skipped when the segment ran no new steps
             if b < steps and hist["losses"]:
@@ -324,7 +330,7 @@ def train(
         else dataclasses.replace(graph, act_threshold=th_sched.final)
     )
     final_prog = CutieProgram(final_graph)
-    calib = _on(pipe.batch_at(0)[0], dev)
+    calib = torch.from_numpy(pipe.batch_at(0)[0]).to(dev)
     with tr.span("train.quantize", track=net, nu=nu_sched.final):
         deployed = final_prog.quantize(
             state["params"], calib=calib, nu=nu_sched.final)
@@ -338,5 +344,5 @@ def train(
         net=net, steps=steps, losses=losses, evals=evals, final_eval=final_eval,
         restarts=restarts, wall_s=wall, nu_final=nu_sched.final,
         thresholds_mode=thresholds, learned_thresholds=learned,
-        params=state["params"], deployed=deployed,
+        params=state["params"], deployed=deployed, step_builds=step_builds,
     )
