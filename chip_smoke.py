@@ -1361,6 +1361,69 @@ def _captured_step_device_ms(dev):
     return det, fast
 
 
+class _TwoSizes:
+    """A pipeline whose batch at an odd step drops its last row: eval batches
+    of two shapes."""
+
+    def __init__(self, pipe):
+        self.pipe = pipe
+        self.state = pipe.state
+
+    def batch_at(self, step):
+        x, y = self.pipe.batch_at(step)
+        return (x[:-1], y[:-1]) if step % 2 else (x, y)
+
+
+def _eval_two_shapes(rep, batch, dev):
+    """`evaluate` of the trained full-width net over eval batches of two
+    sizes: hits equal the plain forwards', each forward captured once per
+    shape, and K1 launched per batch as the captures recorded it."""
+    import dataclasses
+
+    from repro_torch.api import CutieProgram, get_graph
+    from repro_torch.data.pipeline import pipeline_for_net
+    from repro_torch.kernels.ref import deterministic_float32
+    from repro_torch.kernels.ternary_conv2d import ternary_conv2d_cuda
+    from repro_torch.train.evaluate import eval_batches, evaluate
+
+    name, per_eval = TRAIN_SPATIAL[0], TRAIN_SPATIAL[1]
+    prog = CutieProgram(dataclasses.replace(get_graph(name), qat_per_channel=True))
+    pipe = _TwoSizes(pipeline_for_net(prog.graph, batch, seed=SEED))
+    n_batches = TRAIN_EVAL_BATCHES
+    ternary_conv2d_cuda.launches = 0
+    recorded = ternary_conv2d_cuda.recorded
+    e = evaluate(prog, rep.params, pipe, deployed=rep.deployed, n_batches=n_batches,
+                 nu=rep.nu_final)
+    launches = ternary_conv2d_cuda.launches
+    captured = ternary_conv2d_cuda.recorded - recorded
+    hq = hd = n = 0
+    with torch.no_grad(), deterministic_float32():
+        for x, y in eval_batches(pipe, n_batches):
+            xt = torch.from_numpy(x).to(dev)
+            hq += int((prog.forward_qat(rep.params, xt, nu=rep.nu_final).argmax(-1).cpu()
+                       .numpy() == y).sum())
+            hd += int((rep.deployed.forward(xt, backend="fused").argmax(-1).cpu().numpy()
+                       == y).sum())
+            n += len(y)
+    if (e.qat_accuracy, e.deployed_accuracy, e.n_examples) != (hq / n, hd / n, n):
+        fail(f"evaluate over two batch shapes: {e.summary()} != plain forwards qat "
+             f"{hq}/{n}, deployed {hd}/{n}")
+    if e.step_builds != 2 * 2:
+        fail(f"evaluate over two batch shapes: {e.step_builds} builds, not one per "
+             f"forward and shape (4)")
+    if captured != 2 * per_eval or launches != per_eval * n_batches:
+        fail(f"evaluate over two batch shapes: {launches} K1 launches over {n_batches} "
+             f"batches, {captured} recorded by captures; the deployed forward makes "
+             f"{per_eval} per batch, captured once per shape")
+    print(f"[chip_smoke] train: evaluate {name} over batches of {batch} and {batch - 1}: "
+          f"{e.summary()} == plain forwards; {e.step_builds} captures (2 forwards x 2 "
+          f"shapes); {launches} K1 launches, {captured} recorded", flush=True)
+    return {"n_examples": e.n_examples, "qat_accuracy": e.qat_accuracy,
+            "deployed_accuracy": e.deployed_accuracy, "step_builds": e.step_builds,
+            "k1_launches": launches, "k1_recorded_by_captures": captured,
+            "equals_plain_forwards": True}
+
+
 def train_path(dev):
     """Phase 7: the training path at full width, then a resume on the card
     and the launcher with its trace.  Returns (the ``train`` report, K1
@@ -1457,6 +1520,7 @@ def train_path(dev):
     if not torch.equal(fused, ref):
         fail(f"train {TRAIN_SPATIAL[0]}: trained fused != ref: "
              f"max|diff|={(fused - ref).abs().max().item()}")
+    out["eval_two_shapes"] = _eval_two_shapes(rep, recipe["batch"], dev)
 
     # full-width temporal: every layer takes a finite, non-zero gradient at step 1
     name = TRAIN_TEMPORAL[0]
@@ -2139,9 +2203,11 @@ def _dryrun_vs_card(cfg, shape, dev):
     """One cell built by the dry-run on a (1, 1) mesh of this card, run on
     meta tensors and on zero tensors on the card: the argument bytes
     against the allocation's growth, the FLOP counts, and the temp bytes
-    against the peak growth over one real step (after a warm-up step)."""
+    against the peak growth over one real step (after a warm-up step).  The
+    same cell on a planned (1, 1) mesh through the DTensor path gives the
+    plain figures."""
     from repro_torch.launch import dryrun
-    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.mesh import make_local_mesh, planned_mesh
     from repro_torch.tree import tree_leaves, tree_map
 
     mesh = make_local_mesh(dev)
@@ -2149,8 +2215,15 @@ def _dryrun_vs_card(cfg, shape, dev):
     arg_bytes = dryrun.tree_bytes(args, shardings)
     flops_meta = dryrun.count_flops(step, args)
     t0 = time.perf_counter()
-    temp = dryrun.peak_temp_bytes(step, dryrun.local_args(args, shardings, rules))
+    temp = dryrun.peak_temp_bytes(step, args)
     trace_s = time.perf_counter() - t0
+    planned = dryrun.analyze_cell(cfg, shape, planned_mesh((1, 1), ("data", "model")))
+    pm = planned["memory_analysis"]
+    if (pm["temp_bytes"], pm["argument_bytes"], planned["flops"]) != (temp, arg_bytes,
+                                                                       flops_meta):
+        fail(f"dryrun {cfg.name} {shape.kind}: the DTensor path on a planned (1, 1) mesh "
+             f"gives temp {pm['temp_bytes']}, arguments {pm['argument_bytes']}, FLOPs "
+             f"{planned['flops']}; the plain path {temp}, {arg_bytes}, {flops_meta}")
 
     torch.cuda.synchronize()
     before = torch.cuda.memory_allocated()
@@ -2182,16 +2255,18 @@ def _dryrun_vs_card(cfg, shape, dev):
              f"growth {peak} over one step (an upper bound may only err high)")
     return {"arch": cfg.name, "kind": shape.kind, "batch": shape.global_batch,
             "seq": shape.seq_len, "argument_bytes": arg_bytes,
-            "allocated_growth": growth, "rounding_bound": slack, "flops": flops_meta, "flops_card": flops_card,
-            "temp_bytes": temp, "peak_step_growth": peak, "temp_over_peak": temp / peak,
-            "trace_s": trace_s}
+            "allocated_growth": growth, "rounding_bound": slack, "flops": flops_meta,
+            "flops_card": flops_card, "temp_bytes": temp, "temp_bytes_dtensor_1x1":
+            pm["temp_bytes"], "peak_step_growth": peak, "temp_over_peak": temp / peak,
+            "trace_s": trace_s, "trace_s_dtensor_1x1": planned["trace_s"]}
 
 
 def dryrun_path(dev):
     """Phase 10: the dry-run.  Full-width cells on the (16, 16) production
-    mesh through `run_cell` (FLOPs and bytes per device, fits against this
-    card's memory), then two cells held against the card on a (1, 1) mesh.
-    It launches neither K1 nor K2."""
+    mesh through `run_cell` (per device on meta DTensors over a fake process
+    group: FLOPs, temp bytes with the model axis split, collectives; fits
+    against this card's memory), then two cells held against the card on a
+    (1, 1) mesh.  It launches neither K1 nor K2."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.ternary_conv2d import ternary_conv2d_cuda
     from repro_torch.kernels.ternary_matmul import ternary_matmul_cuda
@@ -2207,18 +2282,27 @@ def dryrun_path(dev):
                             out_dir=REPO / "build" / "dryrun_torch")
         if r["status"] != "ok":
             fail(f"dryrun {arch} x {shape}: {r.get('error')}\n{r.get('traceback', '')}")
-        mem = r["memory_analysis"]
+        mem, coll = r["memory_analysis"], r["collectives"]
+        if r["temp_bytes_kind"] != "per_device" or r["probe"].get("collective_total") is None:
+            fail(f"dryrun {arch} x {shape}: temp bytes {r['temp_bytes_kind']}, probe "
+                 f"{r['probe']}")
         cell = {"arch": arch, "shape": shape, "mesh": r["mesh"], "flops": r["flops"],
+                "flops_global": r["flops_global"],
                 "argument_bytes": mem["argument_bytes"], "temp_bytes": mem["temp_bytes"],
+                "temp_bytes_kind": r["temp_bytes_kind"],
                 "output_bytes": mem["output_bytes"], "alias_bytes": mem["alias_bytes"],
+                "collectives": coll, "probe_collective_total": r["probe"]["collective_total"],
+                "bytes_accessed": r["bytes_accessed"],
                 "hbm_bytes": r["device"]["hbm_bytes"], "fits": r["fits"],
                 "trace_s": r["trace_s"]}
         out["cells"].append(cell)
+        kinds = ", ".join(f"{k} {v / 2**30:.3f}" for k, v in coll["bytes_by_kind"].items() if v)
         print(f"[chip_smoke] dryrun: {arch} x {shape} x {r['mesh']}: "
-              f"{r['flops']:.4e} FLOPs/device, arguments "
+              f"{r['flops']:.4e} FLOPs/device ({r['flops_global']:.4e} global), arguments "
               f"{mem['argument_bytes'] / 2**30:.3f} GiB + temp {mem['temp_bytes'] / 2**30:.3f} "
-              f"GiB/device (upper bound), fits {r['device']['name']} "
-              f"({r['device']['hbm_bytes'] / 2**30:.2f} GiB): {r['fits']}; "
+              f"GiB/device (per device), fits {r['device']['name']} "
+              f"({r['device']['hbm_bytes'] / 2**30:.2f} GiB): {r['fits']}; collectives "
+              f"{coll['total_bytes'] / 2**30:.3f} GiB/device ({kinds or 'none'}); "
               f"trace {r['trace_s']:.1f} s", flush=True)
 
     arch, cache_len, batch = DRYRUN_DECODE
@@ -2231,14 +2315,16 @@ def dryrun_path(dev):
         print(f"[chip_smoke] dryrun: {c['arch']} {c['kind']} {c['batch']}x{c['seq']} on a "
               f"(1, 1) mesh: argument_bytes {c['argument_bytes']} vs allocated "
               f"{c['allocated_growth']} (rounding bound {c['rounding_bound']}); FLOPs "
-              f"{c['flops']} == card {c['flops_card']}; temp_bytes {c['temp_bytes']} >= "
-              f"peak step growth {c['peak_step_growth']} (ratio "
-              f"{c['temp_over_peak']:.3f})", flush=True)
+              f"{c['flops']} == card {c['flops_card']}; temp_bytes {c['temp_bytes']} "
+              f"(== DTensor path {c['temp_bytes_dtensor_1x1']}) >= peak step growth "
+              f"{c['peak_step_growth']} (ratio {c['temp_over_peak']:.3f})", flush=True)
 
     launches = {"ternary_conv2d": ternary_conv2d_cuda.launches,
                 "ternary_matmul": ternary_matmul_cuda.launches}
     if any(launches.values()):
         fail(f"dryrun: the dry-run launched the CUTIE kernels: {launches}")
+    print(f"[chip_smoke] dryrun: K1 {launches['ternary_conv2d']} and K2 "
+          f"{launches['ternary_matmul']} launches", flush=True)
     out["kernel_launches"] = launches
     out["phase_s"] = time.perf_counter() - t_phase
     return out

@@ -1,33 +1,45 @@
-"""Dry-run of every (arch x shape x mesh) cell on meta tensors: what one
-device of a production mesh computes and holds, without the mesh.
-Counterpart of `repro.launch.dryrun`.
+"""Dry-run of every (arch x shape x mesh) cell on meta DTensors: what one
+device of a production mesh computes, holds and sends.  Counterpart of
+`repro.launch.dryrun`.
 
 The reference lowers and compiles each cell under GSPMD on 512 forced host
-devices.  The port has no SPMD partitioner; it runs the cell's step once on
-meta tensors (shapes and dtypes, no storage, no card) and reads:
+devices.  The port backs the planned mesh with a fake process group
+(`launch.mesh.fake_device_mesh`: ``mesh.size`` ranks, this process rank 0,
+collectives that move nothing), lays the cell's meta arguments out as
+DTensors by the sharding plan (`launch.sharding.distribute_meta`), runs the
+step once with the plan's activation constraints, and reads, under one
+`DeviceBook` dispatch mode that sees every op on each device's local
+tensors:
 
-    flops          `FlopCounterMode` over one call at the global batch,
-                   divided by the mesh size (the reference's per-device
-                   figure); ``flops_global`` beside it
+    flops          one device's FLOPs, from the local shapes through
+                   `torch.utils.flop_counter`'s formulas: replicated work
+                   counts on every device, as the reference's
+                   ``cost_analysis``; ``flops_global`` beside it is
+                   `FlopCounterMode`'s count at the global shapes
+    bytes_accessed each op's local input and output bytes, summed
+                   (``bytes_accessed_kind: "unfused"``: XLA's figure is
+                   after fusion)
     argument_bytes one device's bytes of every argument leaf under the
-                   cell's sharding plan (`launch/sharding.py`) — exact
+                   plan — exact
     alias_bytes    the bytes of the argument the reference donates (the
                    train state; the decode cache)
     output_bytes   one device's bytes of the step's outputs
-    temp_bytes     the peak of bytes allocated and alive while the step
-                   runs at the per-device batch (global / data-parallel
-                   size), each allocation counted as the most the CUDA
-                   caching allocator books for it (`booked_bytes`).  The
-                   model axis does not split activations here: an upper
-                   bound
+    temp_bytes     the peak of local bytes allocated and alive while the
+                   step runs (``temp_bytes_kind: "per_device"``), each
+                   allocation counted as the most the CUDA caching
+                   allocator books for it (`booked_bytes`)
+    collectives    the reference's schema (``bytes_by_kind``, ``counts``,
+                   ``total_bytes``): each collective DTensor issues, by its
+                   result bytes on one device
     fits           argument_bytes + temp_bytes <= the card's own memory
                    (``device``); null with ``--device cpu``
 
-``probe`` extrapolates FLOPs from two reduced-depth configs as the
-reference does (`probe_configs`), so `benchmarks/roofline.py` finds its
-fields; the port runs every layer in a Python loop, so probe and full
-count agree on dense configs.  There are no HLO and no collectives to
-parse: ``collectives`` is null, with the reason.
+The collectives are DTensor's redistributions, not an SPMD partitioner's
+choice: the shard function (`ShardingRules.make_shard_fn`) places the
+activations where the reference constrains them, and DTensor's sharding
+propagation moves the rest.  ``probe`` extrapolates FLOPs, bytes and
+collective bytes from two reduced-depth configs as the reference does
+(`probe_configs`), so `benchmarks/roofline.py` finds its fields.
 
 Artifacts land in ``experiments/dryrun_torch/<arch>__<shape>__<mesh>[__quant][__variant].json``.
 
@@ -38,6 +50,7 @@ Usage:
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses as dc
 import json
 import multiprocessing
@@ -50,24 +63,28 @@ from pathlib import Path
 from typing import Optional
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
+from torch.distributed.tensor import DTensor
+from torch.distributed.tensor.experimental import implicit_replication
 from torch.utils._python_dispatch import TorchDispatchMode
-from torch.utils.flop_counter import FlopCounterMode
+from torch.utils.flop_counter import FlopCounterMode, flop_registry
 
 from repro_torch.configs import ARCH_IDS, get_config, shape_applicable
 from repro_torch.device import resolve_device
-from repro_torch.launch.mesh import make_production_mesh
-from repro_torch.launch.sharding import P, Sharding, rules_for_cell
+from repro_torch.launch.mesh import fake_device_mesh, make_production_mesh
+from repro_torch.launch.sharding import P, Sharding, distribute_meta, rules_for_cell
 from repro_torch.launch.steps import (
     input_specs,
+    prefill_cache_len,
     make_decode_step,
     make_prefill_step,
     make_train_step,
     train_state_specs,
 )
 from repro_torch.models.config import SHAPES
-from repro_torch.models.model import init_params
+from repro_torch.models.model import cache_spec, init_cache, init_params
 from repro_torch.optim.adamw import AdamWConfig
-from repro_torch.tree import tree_leaves, tree_unflatten
+from repro_torch.tree import tree_leaves
 
 OUT_DIR = Path(__file__).resolve().parents[3] / "experiments" / "dryrun_torch"
 
@@ -76,9 +93,21 @@ OUT_DIR = Path(__file__).resolve().parents[3] / "experiments" / "dryrun_torch"
 ALLOC_GRANULE = 512
 ALLOC_UNSPLIT = 1 << 20
 
-TEMP_BYTES_KIND = "upper_bound_model_axis_unsplit"
-COLLECTIVES_REASON = ("the port has no SPMD partitioner whose program could be parsed "
-                      "for collectives")
+TEMP_BYTES_KIND = "per_device"
+BYTES_ACCESSED_KIND = "unfused"
+
+# the reference's collective kinds, and the functional collectives DTensor
+# issues for four of them (``wait_tensor`` and ``_wrap_tensor_autograd``
+# move nothing; a transform between two sharded dims is an
+# ``all_to_all_single``, see `launch.mesh.fake_device_mesh`)
+COLLECTIVES = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all",
+               "collective-permute")
+_COLLECTIVE_OPS = {"_c10d_functional.all_reduce": "all-reduce",
+                   "_c10d_functional.all_gather_into_tensor": "all-gather",
+                   "_c10d_functional.reduce_scatter_tensor": "reduce-scatter",
+                   "_c10d_functional.all_to_all_single": "all-to-all",
+                   "_c10d_functional.wait_tensor": None,
+                   "_c10d_functional._wrap_tensor_autograd": None}
 
 
 def accum_for(cfg, shape) -> int:
@@ -100,8 +129,10 @@ def accum_for(cfg, shape) -> int:
 def build_cell(cfg, shape, mesh, *, force_accum: Optional[int] = None,
                sharding_opts: Optional[dict] = None):
     """Returns ``(step, args, shardings, donate_argnums, rules)``: the step,
-    its meta arguments at the global batch, a `Sharding` per argument leaf
-    (the same tree as ``args``) and the argument the reference donates."""
+    its meta arguments at the global shapes, a `Sharding` per argument leaf
+    (the same tree as ``args``) and the argument the reference donates.  On
+    a mesh backed by a fake process group the step's shard function places
+    activations, and a prefill builds its cache laid out by the plan."""
     rules = rules_for_cell(mesh, cfg, shape, **(sharding_opts or {}))
     shard = rules.make_shard_fn()
     specs = input_specs(cfg, shape)
@@ -124,7 +155,18 @@ def build_cell(cfg, shape, mesh, *, force_accum: Optional[int] = None,
     params = init_params(cfg, None, dtype=torch.bfloat16, device="meta")
     param_shardings = rules.param_shardings(params)
     if shape.kind == "prefill":
-        step = make_prefill_step(cfg, shape.seq_len, shard=shard)
+        # the in-step cache, laid out by the plan: its spec is built here,
+        # outside the step, so only the blocks the step allocates are booked
+        spec = cache_spec(cfg, shape.global_batch, prefill_cache_len(cfg, shape.seq_len),
+                          torch.bfloat16)
+        spec_shardings = rules.cache_shardings(spec, cfg)
+
+        def cache_init(cfg, batch, max_len, dtype, device=None):
+            if mesh.device_mesh is None:
+                return init_cache(cfg, batch, max_len, dtype, device=device)
+            return distribute_meta(spec, spec_shardings)
+
+        step = make_prefill_step(cfg, shape.seq_len, shard=shard, cache_init=cache_init)
         args = (params, specs["batch"])
         return step, args, (param_shardings, batch_shardings(specs["batch"])), (), rules
 
@@ -153,26 +195,6 @@ def tree_bytes(tree, shardings) -> int:
     """One device's bytes of every leaf of ``tree`` under ``shardings``."""
     return sum(s.bytes_per_device(x)
                for x, s in zip(tree_leaves(tree), tree_leaves(shardings)))
-
-
-def local_args(args, shardings, rules):
-    """Meta arguments at one device's batch: every non-parameter argument
-    (the batch, the decode tokens and cache) with each dim laid over the
-    batch axes cut to its block.  Parameters and the train state keep
-    their full shape: the model axis splits nothing here."""
-    ba = P(rules.logical["batch"])[0]  # as a spec entry reads it
-
-    def cut(x, s):
-        spec = list(s.spec) + [None] * (x.ndim - len(s.spec))
-        shape = [blk if ba is not None and e == ba else d
-                 for d, e, blk in zip(x.shape, spec, s.shard_shape(x.shape))]
-        return torch.empty(shape, dtype=x.dtype, device="meta")
-
-    out = [args[0]]
-    for a, s in zip(args[1:], shardings[1:]):
-        out.append(tree_unflatten(a, [cut(x, sh) for x, sh in
-                                      zip(tree_leaves(a), tree_leaves(s))]))
-    return tuple(out)
 
 
 def booked_bytes(nbytes: int) -> int:
@@ -224,35 +246,110 @@ class LiveBytes(TorchDispatchMode):
 
 
 def peak_temp_bytes(step, args) -> int:
-    """The most bytes ``step(*args)`` holds at once beyond its arguments."""
+    """The most bytes ``step(*args)`` holds at once beyond its arguments
+    (plain tensors: one device that holds the whole step)."""
     with LiveBytes() as live:
         step(*args)
     return live.peak
 
 
-def analyze_cell(cfg, shape, mesh, *, sharding_opts: Optional[dict] = None) -> dict:
-    """FLOPs and bytes per device of one cell (see the module docstring)."""
-    step, args, shardings, donate, rules = build_cell(cfg, shape, mesh,
-                                                      sharding_opts=sharding_opts)
+def _tensors(x):
+    if isinstance(x, torch.Tensor):
+        yield x
+    elif isinstance(x, (list, tuple)):
+        for y in x:
+            yield from _tensors(y)
+
+
+class DeviceBook(LiveBytes):
+    """`LiveBytes` over one device's local tensors, and beside it that
+    device's FLOPs, unfused bytes accessed and collectives.  An op on
+    DTensors is handed on (``NotImplemented``) to DTensor, which runs it as
+    local ops and collectives that come back here.  An op of DTensor's
+    sharding propagation, which builds fake tensors of the global shapes to
+    learn an op's output shapes (the first time it meets the op), is run
+    and not booked: no device runs it."""
+
+    def __init__(self):
+        super().__init__()
+        self.flops = 0
+        self.bytes_accessed = 0
+        self.bytes_by_kind = {k: 0 for k in COLLECTIVES}
+        self.counts = {k: 0 for k in COLLECTIVES}
+        self.calls = []  # (kind, result bytes) of each collective, in order
+
+    def collectives(self) -> dict:
+        return {"bytes_by_kind": dict(self.bytes_by_kind), "counts": dict(self.counts),
+                "total_bytes": sum(self.bytes_by_kind.values())}
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if any(issubclass(t, DTensor) for t in types):
+            return NotImplemented
+        if (torch._C._get_dispatch_mode(torch._C._TorchDispatchModeKey.FAKE) is not None
+                or any(issubclass(t, FakeTensor) for t in types)):
+            return func(*args, **(kwargs or {}))
+        name = f"{func.namespace}.{func._opname}"
+        if func.namespace.startswith("_c10d_functional") or name in _COLLECTIVE_OPS:
+            if name not in _COLLECTIVE_OPS:
+                raise NotImplementedError(f"collective {func} is none of {COLLECTIVES}")
+            kind = _COLLECTIVE_OPS[name]
+            if kind is None:
+                # a wait, or a wrapper that hands its input back (on meta
+                # tensors it returns a new one, which no device allocates)
+                return func(*args, **(kwargs or {}))
+            out = super().__torch_dispatch__(func, types, args, kwargs)
+            nbytes = sum(t.nbytes for t in _tensors(out))
+            self.bytes_by_kind[kind] += nbytes
+            self.counts[kind] += 1
+            self.calls.append((kind, nbytes))
+            return out
+        out = super().__torch_dispatch__(func, types, args, kwargs)
+        packet = func._overloadpacket
+        if packet in flop_registry:
+            self.flops += int(flop_registry[packet](*args, **(kwargs or {}), out_val=out))
+        rets = func._schema.returns
+        if not all(r.alias_info is not None and not r.alias_info.is_write for r in rets):
+            self.bytes_accessed += sum(t.nbytes for t in _tensors(args))
+            self.bytes_accessed += sum(t.nbytes for t in _tensors(out))
+        return out
+
+
+def analyze_cell(cfg, shape, mesh, *, sharding_opts: Optional[dict] = None,
+                 force_accum: Optional[int] = None) -> dict:
+    """FLOPs, bytes and collectives per device of one cell, run once on
+    meta DTensors on the planned ``mesh`` backed by a fake process group
+    (see the module docstring); on a mesh of one real device, on its plain
+    meta arguments.  ``flops_global`` is counted first, on the plain step
+    at the global shapes."""
     t0 = time.perf_counter()
-    with FlopCounterMode(display=False) as fc:
-        outputs = step(*args)
-    flops_global = int(fc.get_total_flops())
-    out_bytes = tree_bytes(outputs, output_shardings(cfg, shape, rules, outputs, shardings))
-    del outputs
-    temp = peak_temp_bytes(step, local_args(args, shardings, rules))
+    step, args, *_ = build_cell(cfg, shape, mesh, force_accum=force_accum,
+                                sharding_opts=sharding_opts)
+    flops_global = count_flops(step, args)
+    with fake_device_mesh(mesh) if mesh.abstract else contextlib.nullcontext():
+        step, args, shardings, donate, rules = build_cell(
+            cfg, shape, mesh, force_accum=force_accum, sharding_opts=sharding_opts)
+        dargs = args if mesh.device_mesh is None else distribute_meta(args, shardings)
+        with implicit_replication(), DeviceBook() as book:
+            outputs = step(*dargs)
+        trace_s = time.perf_counter() - t0
+        out_bytes = tree_bytes(outputs, output_shardings(cfg, shape, rules, outputs,
+                                                         shardings))
+        del outputs, dargs
     return {
-        "trace_s": time.perf_counter() - t0,
-        "flops": flops_global / mesh.size,
+        "trace_s": trace_s,
+        "flops": book.flops,
         "flops_global": flops_global,
-        "accum_steps": accum_for(cfg, shape),
+        "bytes_accessed": book.bytes_accessed,
+        "bytes_accessed_kind": BYTES_ACCESSED_KIND,
+        "accum_steps": force_accum if force_accum is not None else accum_for(cfg, shape),
         "memory_analysis": {
             "argument_bytes": tree_bytes(args, shardings),
             "output_bytes": out_bytes,
-            "temp_bytes": temp,
+            "temp_bytes": book.peak,
             "alias_bytes": sum(tree_bytes(args[i], shardings[i]) for i in donate),
         },
         "temp_bytes_kind": TEMP_BYTES_KIND,
+        "collectives": book.collectives(),
     }
 
 
@@ -281,19 +378,28 @@ def probe_configs(cfg):
 
 
 def probe_extrapolate(cfg, shape, mesh, sharding_opts=None) -> dict:
-    """Whole-model FLOPs per device extrapolated from the two probes (each
-    at accum 1, as the reference's)."""
+    """Whole-model FLOPs, bytes accessed and collective bytes per device
+    extrapolated from the two probes (each at accum 1, as the
+    reference's)."""
     p1, p2, units_full, units_p1 = probe_configs(cfg)
-    raw = []
+    vals = []
     for p in (p1, p2):
-        step, args, *_ = build_cell(p, shape, mesh, force_accum=1,
-                                    sharding_opts=sharding_opts)
-        raw.append(count_flops(step, args))
-    total = raw[0] + (units_full - units_p1) * (raw[1] - raw[0])
+        r = analyze_cell(p, shape, mesh, sharding_opts=sharding_opts, force_accum=1)
+        vals.append({"flops": r["flops"], "bytes": r["bytes_accessed"],
+                     "coll": r["collectives"]["bytes_by_kind"],
+                     "coll_total": r["collectives"]["total_bytes"]})
+    mult = units_full - units_p1
+
+    def ext(a, b):
+        return a + mult * (b - a)
+
     return {
-        "flops": total / mesh.size,
-        "bytes": None, "collective_bytes": None, "collective_total": None,
-        "probe_raw": [{"flops": f / mesh.size} for f in raw],
+        "flops": ext(vals[0]["flops"], vals[1]["flops"]),
+        "bytes": ext(vals[0]["bytes"], vals[1]["bytes"]),
+        "collective_bytes": {k: ext(vals[0]["coll"][k], vals[1]["coll"][k])
+                             for k in vals[0]["coll"]},
+        "collective_total": ext(vals[0]["coll_total"], vals[1]["coll_total"]),
+        "probe_raw": vals,
         "units_full": units_full,
     }
 
@@ -352,8 +458,7 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
                 probe = {"error": f"{type(pe).__name__}: {pe}"}
         mem = result["memory_analysis"]
         result.update(
-            status="ok", probe=probe, collectives=None,
-            collectives_reason=COLLECTIVES_REASON, device=card,
+            status="ok", probe=probe, device=card,
             fits=(None if card is None else
                   mem["argument_bytes"] + mem["temp_bytes"] <= card["hbm_bytes"]),
         )
@@ -362,7 +467,8 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
             fits = "" if card is None else f", fits {card['name']}: {result['fits']}"
             print(f"[dryrun] {arch} x {shape_name} x {mesh_tag}: OK "
                   f"(trace {result['trace_s']:.1f}s, {gib:.2f} GiB/dev{fits}, "
-                  f"{result['flops']:.3e} FLOPs)", flush=True)
+                  f"{result['flops']:.3e} FLOPs, collectives "
+                  f"{result['collectives']['total_bytes'] / 2**30:.3f} GiB)", flush=True)
     except Exception as e:  # noqa: BLE001 — dry-run failures are data
         result.update(status="error", error=f"{type(e).__name__}: {e}",
                       traceback=traceback.format_exc()[-4000:])

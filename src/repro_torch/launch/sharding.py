@@ -20,16 +20,27 @@ wk/wv (GQA KV heads < model-axis size for every assigned arch), w_dq/w_dkv
 The port has no SPMD partitioner.  A spec is a `P` (the reference's
 ``PartitionSpec``) and a leaf's placement a `Sharding` (its
 ``NamedSharding``), which says what one device of the mesh holds: the
-dry-run's bytes per device.  The shard function of `make_shard_fn` is the
-identity on one device or a planned mesh, and raises on a mesh of several
-real devices: tensor-parallel execution of the LM is not ported.
+dry-run's bytes per device, and the DTensor placements of the leaf.  On a
+planned mesh backed by a fake process group (`launch.mesh.fake_device_mesh`)
+`distribute_meta` lays a tree of meta tensors out as DTensors, and the
+shard function of `make_shard_fn` redistributes an activation to its
+logical axes' spec: the counterpart of ``with_sharding_constraint``.  It is
+the identity on one real device or an unbacked planned mesh, and raises on
+a mesh of several real devices: tensor-parallel execution of the LM is not
+ported.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+import math
+from typing import TYPE_CHECKING, Any, Dict, Optional, Tuple
 
-from repro_torch.models.config import ModelConfig, ShapeConfig
+import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
 from repro_torch.tree import tree_leaves, tree_map_with_path, tree_unflatten
+
+if TYPE_CHECKING:  # the model imports the plan's placements: no import back
+    from repro_torch.models.config import ModelConfig, ShapeConfig
 
 # projection name -> parallelism kind
 _COL = {"wq", "w_uq", "w_uk", "w_uv", "w_gate", "w_up", "shared_gate",
@@ -80,6 +91,19 @@ class Sharding:
         for i, e in enumerate(self.spec):
             n = _axis_product(sizes, e)
             out[i] = -(-out[i] // n)
+        return tuple(out)
+
+    def placements(self) -> tuple:
+        """The spec as DTensor placements, one per mesh axis: ``Shard(d)``
+        where an entry of tensor dim ``d`` names the axis (a tuple entry
+        shards that dim over each of its axes, outer first), else
+        ``Replicate()`` (so is an axis of size 1)."""
+        out = [Replicate()] * len(self.mesh.axis_names)
+        for d, e in enumerate(self.spec):
+            for axis in (() if e is None else (e,) if isinstance(e, str) else e):
+                i = self.mesh.axis_names.index(axis)
+                if self.mesh.devices.shape[i] > 1:
+                    out[i] = Shard(d)
         return tuple(out)
 
     def bytes_per_device(self, leaf) -> int:
@@ -141,11 +165,14 @@ class ShardingRules:
 
     def make_shard_fn(self):
         """The activation-constraint function the model steps take as
-        ``shard``.  On one device or a planned mesh a constraint changes no
-        value, so it returns ``x`` — as the reference's does wherever its
-        guard skips a dim that does not divide.  On a mesh of several real
-        devices it raises: tensor-parallel execution is not ported, and the
-        steps never compute unsharded where a plan asks for shards."""
+        ``shard``: ``shard(x, *logical_names)``.  As the reference's, it
+        skips the constraint (returns ``x``) when any named dim does not
+        divide its axes' size.  On a planned mesh backed by a fake process
+        group it redistributes a DTensor ``x`` to ``spec(*names)``.  On one
+        real device or an unbacked planned mesh a constraint changes no
+        value, and it returns ``x``.  On a mesh of several real devices it
+        raises: tensor-parallel execution is not ported, and the steps never
+        compute unsharded where a plan asks for shards."""
         mesh = self.mesh
         if not mesh.abstract and mesh.size > 1:
             raise NotImplementedError(
@@ -153,9 +180,19 @@ class ShardingRules:
                 "the LM across devices is not ported; run on one device "
                 "(--device cuda:0, or CUDA_VISIBLE_DEVICES with one card)"
             )
+        rules = self
 
         def shard(x, *names):
-            return x
+            if mesh.device_mesh is None or not isinstance(x, DTensor):
+                return x
+            for dim, nm in enumerate(names):
+                if nm is None:
+                    continue
+                size = rules._axes_size(nm)
+                if size > 1 and x.shape[dim] % size != 0:
+                    return x
+            placements = Sharding(mesh, rules.spec(*names)).placements()
+            return x.redistribute(mesh.device_mesh, placements)
 
         return shard
 
@@ -291,6 +328,110 @@ class ShardingRules:
     def _shardings(self, tree, specs):
         """A `Sharding` per leaf of ``tree`` from its spec tree."""
         return tree_unflatten(tree, [Sharding(self.mesh, s) for s in spec_leaves(specs)])
+
+
+# ---------------------------------------------------------------------------
+# Placements of the model's per-device blocks
+# ---------------------------------------------------------------------------
+# Where the model runs a block on each device's local tensors
+# (`models/spmd.local_block`), the plan decides how its operands meet: the
+# choices an SPMD partitioner makes for the reference.
+
+def weights_beside(x_placements: tuple, w: DTensor, dim: int) -> tuple:
+    """The placements of a weight used beside an activation placed as
+    ``x_placements``: its tensor-parallel shard of ``dim`` kept over the
+    mesh dims that do not split the activation; replicated (all-gathered,
+    as FSDP gathers a weight) everywhere else."""
+    return tuple(wp if (wp == Shard(dim) and not xp.is_shard()) else Replicate()
+                 for xp, wp in zip(x_placements, w.placements))
+
+
+# Where an activation sharded along a dim it does not contract (a sequence)
+# meets a tensor-parallel weight, one of them crosses that mesh dim: the
+# activation is gathered (Megatron's sequence parallelism, which spares the
+# reshard of the output that the next constraint would force) unless its
+# block is more than this many times the weight's block there (the weight
+# after its FSDP gathers): a decode's sharded cache against a small
+# projection, a long sequence against a small weight.  At 1 the smaller
+# block moves.  `scripts/dryrun_torch_vs_reference.py --sweep-gather` holds
+# values from 0 up against the reference's SMOKE cells on (1, 4) and (2, 4)
+# meshes (its reading is in `PERF.md`).
+GATHER_ACTIVATION_UP_TO = 1
+
+
+def matmul_placements(x: DTensor, w: DTensor, w_in: int, w_out: int):
+    """Placements ``(x, w, out)`` of ``x @ w`` run per device, with ``w``'s
+    contracted dim ``w_in`` and output dim ``w_out``, per mesh dim as an
+    SPMD partitioner lays out Megatron's linears: where ``x`` is sharded on
+    its batch ``x`` keeps it and ``w`` is gathered (FSDP); else a
+    column-parallel ``w`` (sharded on ``w_out``) meets a replicated ``x``
+    and gives an output sharded on its last dim, and a row-parallel ``w``
+    (sharded on ``w_in``) meets ``x`` sharded on its last dim and gives a
+    partial sum (an ``x`` sharded along a sequence is gathered for them, see
+    `GATHER_ACTIVATION_UP_TO`); ``x`` sharded on another dim it does not
+    contract keeps it beside a gathered ``w``; anything else is
+    replicated."""
+    last = x.ndim - 1
+    fsdp = math.prod(x.device_mesh.size(i) for i, (p, q) in
+                     enumerate(zip(x.placements, w.placements)) if p == Shard(0) and q.is_shard())
+    keep_x = x._local_tensor.nbytes > GATHER_ACTIVATION_UP_TO * fsdp * w._local_tensor.nbytes
+    xp, wp, op = [], [], []
+    for p, q in zip(x.placements, w.placements):
+        outer = p.is_shard() and p.dim != last
+        if p == Shard(0) or (outer and (keep_x or not q.is_shard())):
+            xp.append(p), wp.append(Replicate()), op.append(p)
+        elif q == Shard(w_out):
+            xp.append(Replicate()), wp.append(q), op.append(Shard(last))
+        elif q == Shard(w_in):
+            xp.append(Shard(last)), wp.append(q), op.append(Partial())
+        else:
+            xp.append(Replicate()), wp.append(Replicate()), op.append(Replicate())
+    return tuple(xp), tuple(wp), tuple(op)
+
+
+def vector_beside(wp: tuple, w_out: int) -> tuple:
+    """The placements of a per-output vector (a bias, a scale) of a weight
+    placed as ``wp``: sharded where the weight's output dim is."""
+    return tuple(Shard(0) if p == Shard(w_out) else Replicate() for p in wp)
+
+
+def einsum_placements(eq: str, a: DTensor, b: DTensor):
+    """Placements ``(a, b, out)`` of a two-operand einsum ``eq`` run per
+    device.  Per mesh dim one index letter is split: the one the larger
+    operand shards there (a cache stays put, the small query moves), else
+    the other's.  An operand that holds the letter is sharded on it (from
+    replicated, a local cut), one that does not is replicated; the output
+    is sharded on the letter, or a partial sum where it is contracted."""
+    ins, out = eq.replace(" ", "").split("->")
+    ea, eb = ins.split(",")
+    big, small = (a, ea), (b, eb)
+    if math.prod(b._local_tensor.shape) > math.prod(a._local_tensor.shape):
+        big, small = small, big
+    ap, bp, op = [], [], []
+    for i in range(a.device_mesh.ndim):
+        letter = None
+        for x, e in (big, small):
+            p = x.placements[i]
+            if p.is_shard() and letter is None:
+                letter = e[p.dim]
+        for e, acc in ((ea, ap), (eb, bp)):
+            acc.append(Shard(e.index(letter)) if letter and letter in e else Replicate())
+        op.append(Replicate() if letter is None else
+                  Shard(out.index(letter)) if letter in out else Partial())
+    return tuple(ap), tuple(bp), tuple(op)
+
+
+def distribute_meta(tree, shardings):
+    """``tree`` (meta tensors at their global shapes) as meta DTensors on
+    the backed mesh of ``shardings`` (a `Sharding` per leaf): each leaf's
+    local tensor is one device's block."""
+    def one(x, s):
+        local = torch.empty(s.shard_shape(x.shape), dtype=x.dtype, device="meta")
+        return DTensor.from_local(local, s.mesh.device_mesh, s.placements(),
+                                  run_check=False, shape=x.shape, stride=x.stride())
+
+    return tree_unflatten(tree, [one(x, s) for x, s in
+                                 zip(tree_leaves(tree), tree_leaves(shardings))])
 
 
 def spec_leaves(specs):

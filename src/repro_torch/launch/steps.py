@@ -23,6 +23,7 @@ import torch
 
 from repro_torch.models.config import ModelConfig, ShapeConfig
 from repro_torch.models.model import cache_spec, forward, init_cache, init_params, lm_loss
+from repro_torch.models.spmd import microbatch
 from repro_torch.optim.adamw import (
     AdamWConfig,
     AdamWState,
@@ -114,14 +115,13 @@ def make_train_step(
         device = tree_leaves(state.params)[0].device
         batch = _batch_to(batch, device)
         if accum_steps > 1:
-            acc = [torch.zeros(p.shape if p.is_floating_point() else (), dtype=torch.float32,
-                               device=device) for p in tree_leaves(state.params)]
+            acc = [torch.zeros_like(p, dtype=torch.float32) if p.is_floating_point()
+                   else torch.zeros((), dtype=torch.float32, device=device)
+                   for p in tree_leaves(state.params)]
             loss_sum = torch.zeros((), dtype=torch.float32, device=device)
-            mbs = {k: v.reshape(accum_steps, v.shape[0] // accum_steps, *v.shape[1:])
-                   for k, v in batch.items()}
             for i in range(accum_steps):
-                (loss, _), g = value_and_grad(cfg, state.params,
-                                              {k: v[i] for k, v in mbs.items()}, shard=shard)
+                mb = {k: microbatch(v, accum_steps, i) for k, v in batch.items()}
+                (loss, _), g = value_and_grad(cfg, state.params, mb, shard=shard)
                 for a, gi in zip(acc, tree_leaves(g)):
                     a.add_(gi)
                 loss_sum = loss_sum + loss
@@ -152,15 +152,19 @@ def prefill_cache_len(cfg: ModelConfig, seq_len: int) -> int:
 
 
 def make_prefill_step(cfg: ModelConfig, max_len: int, *, shard=None,
-                      cache_dtype=torch.bfloat16) -> Callable:
+                      cache_dtype=torch.bfloat16,
+                      cache_init: Optional[Callable] = None) -> Callable:
     """(params, batch) -> (last_logits [B,V], cache).  Builds the cache
-    in-step, on the device of ``batch["tokens"]``."""
+    in-step, on the device of ``batch["tokens"]``: ``cache_init(cfg, batch,
+    max_len, dtype, device=...)`` (default `init_cache`; the dry-run's lays
+    it out by the sharding plan)."""
     max_len = prefill_cache_len(cfg, max_len)
+    cache_init = cache_init or init_cache
 
     @torch.no_grad()
     def prefill_step(params, batch):
         tokens = batch["tokens"]
-        cache0 = init_cache(cfg, tokens.shape[0], max_len, cache_dtype, device=tokens.device)
+        cache0 = cache_init(cfg, tokens.shape[0], max_len, cache_dtype, device=tokens.device)
         out = forward(
             params, cfg, tokens, mode="prefill", cache=cache0, logits_mode="last",
             frontend_embeds=batch.get("frontend_embeds"),

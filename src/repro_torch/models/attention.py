@@ -16,6 +16,7 @@ import math
 from typing import Optional, Tuple
 
 import torch
+from torch.distributed.tensor import Replicate, Shard
 
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.flash import flash_attention
@@ -27,6 +28,7 @@ from repro_torch.models.layers import (
     meta,
     weak_scalar,
 )
+from repro_torch.models.spmd import batch_like, batch_split, is_dtensor, local_block, reshape
 
 NEG_INF = -1e30
 
@@ -76,8 +78,12 @@ def full_attention(q, k, v, mask, scale):
     """Reference full-materialization path (short sequences).
 
     q: [B, Sq, H, hd] with H = KV*G; k,v: [B, Skv, KV, hd];
-    mask: broadcastable to [B, 1, 1, Sq, Skv] (True = attend).
+    mask: broadcastable to [B, 1, 1, Sq, Skv] (True = attend).  On DTensors
+    each device attends its batch rows and heads (`_per_device_heads`).
     """
+    if is_dtensor(q):
+        return _per_device_heads(lambda q, k, v, mask: full_attention(q, k, v, mask, scale),
+                                 q, k, v, mask)
     b, sq, h, hd = q.shape
     kvh = k.shape[2]
     dv = v.shape[-1]
@@ -92,11 +98,56 @@ def full_attention(q, k, v, mask, scale):
 
 def chunked_causal_attention(q, k, v, scale, *, q_chunk: int = 1024, kv_chunk: int = 1024):
     """Flash attention wrapper: [B,S,H,hd] x [B,S,KV,hd] -> [B,S,H,dv]."""
+    return _grouped_flash(q, k, v, scale, q_chunk, kv_chunk, causal=True)
+
+
+def _grouped_flash(q, k, v, scale, q_chunk: int = 1024, kv_chunk: int = 1024, *,
+                   causal: bool):
+    """Flash attention of [B,S,H,hd] queries in KV groups over [B,Sk,KV,hd]
+    keys and values -> [B,S,H,dv]; on DTensors per device's batch rows and
+    heads (`_per_device_heads`)."""
+    if is_dtensor(q):
+        return _per_device_heads(
+            lambda q, k, v: _grouped_flash(q, k, v, scale, q_chunk, kv_chunk, causal=causal),
+            q, k, v)
     b, sq, h, hd = q.shape
-    kvh = k.shape[2]
-    qg = q.reshape(b, sq, kvh, h // kvh, hd)
-    o = flash_attention(qg, k, v, scale, q_chunk, kv_chunk)
+    qg = q.reshape(b, sq, k.shape[2], h // k.shape[2], hd)
+    o = flash_attention(qg, k, v, scale, q_chunk, kv_chunk, causal)
     return o.reshape(b, sq, h, v.shape[-1])
+
+
+def _per_device_heads(fn, q, k, v, mask=None):
+    """``fn(q, k, v[, mask])`` of [B,Sq,H,d] queries over [B,Sk,KV,d] keys
+    and values, run on each device's batch rows and heads
+    (`models/spmd.local_block`), as an SPMD partitioner splits attention:
+    where the mesh dim that shards the heads divides the KV heads too, the
+    keys split with them; where it is a multiple of the KV heads, each
+    device's heads lie in one KV group and it attends with that group (its
+    block of keys and values is the group's); any other shard of the queries
+    is gathered first.  The output is placed as the queries."""
+    kvh, g = k.shape[2], q.shape[2] // k.shape[2]
+    qp, kp = [], []
+    for i, p in enumerate(q.placements):
+        n = q.device_mesh.size(i)
+        if p == Shard(0) or (p == Shard(2) and kvh % n == 0):
+            qp.append(p), kp.append(p)
+        elif p == Shard(2) and n % kvh == 0:
+            qp.append(p), kp.append(Replicate())
+        else:
+            qp.append(Replicate()), kp.append(Replicate())
+    qp, kp = tuple(qp), tuple(kp)
+
+    def local(q, k, v, *mask):
+        groups = max(1, q.shape[2] // g)
+        return fn(q, k[:, :, :groups], v[:, :, :groups], *mask)
+
+    if mask is None:
+        return local_block(local, (q, k, v), (qp, kp, kp), qp)
+    mp = None
+    if mask.shape[0] > 1:
+        mask = mask if is_dtensor(mask) else batch_like(mask, q)
+        mp = tuple(p if p == Shard(0) else Replicate() for p in qp)
+    return local_block(local, (q, k, v, mask), (qp, kp, kp, mp), qp)
 
 
 def _dynamic_slice_seq(x, start: int, size: int):
@@ -146,17 +197,23 @@ def _chunked_reference(q, k, v, scale, *, q_chunk: int = 2048, kv_chunk: int = 2
     return torch.cat(outs, dim=1) if len(outs) > 1 else outs[0]
 
 
-def decode_attention(q, k_cache, v_cache, cache_len, scale):
+def decode_attention(q, k_cache, v_cache, cache_len, scale, shard=None):
     """Single-token attention over the cache.
 
     q: [B, H, hd]; caches: [B, S, KV, hd]; cache_len: scalar or [B] —
     number of valid positions (the rest is masked out of the softmax).
+    The cache sequence axis is sharded over "model"; as the reference's,
+    the constraints pin the flash-decode schedule: the scores stay
+    seq-sharded, and the softmax max/sum and the PV partial outputs are what
+    cross the wire.
     """
     b, s, kvh, hd = k_cache.shape
     h = q.shape[1]
     g = h // kvh
-    qg = q.reshape(b, kvh, g, hd)
+    qg = reshape(q, b, kvh, g, hd)
     scores = einsum("bkgd,bskd->bkgs", qg, k_cache).to(torch.float32) * scale
+    if shard is not None:
+        scores = shard(scores, "batch", None, None, "cache_seq")
     pos = torch.arange(s, device=q.device)
     n_valid = torch.as_tensor(cache_len, device=q.device).reshape(-1, 1)
     valid = pos[None] < n_valid  # [B, S]
@@ -164,8 +221,12 @@ def decode_attention(q, k_cache, v_cache, cache_len, scale):
     m = scores.amax(dim=-1, keepdim=True)
     p = torch.exp(scores - m)
     p = p / p.sum(dim=-1, keepdim=True)
+    if shard is not None:
+        p = shard(p, "batch", None, None, "cache_seq")
     o = einsum("bkgs,bskd->bkgd", p.to(v_cache.dtype), v_cache)
-    return o.reshape(b, h, hd)
+    if shard is not None:
+        o = shard(o, "batch", None, None, None)
+    return reshape(o, b, h, hd)
 
 
 # ---------------------------------------------------------------------------
@@ -181,6 +242,7 @@ def gqa_forward(
     causal: bool = True,
     cache: Optional[dict] = None,
     cache_len=None,
+    shard=None,
 ) -> Tuple[torch.Tensor, Optional[dict]]:
     """x: [B, S, D].  Returns (out [B,S,D], updated cache or None).
 
@@ -191,11 +253,15 @@ def gqa_forward(
     b, s, d = x.shape
     h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     scale = 1.0 / math.sqrt(hd)
-    q = linear(p["wq"], x, quant=cfg.quant, act_quant=cfg.act_quant).reshape(b, s, h, hd)
-    k = linear(p["wk"], x, quant=cfg.quant, act_quant=cfg.act_quant).reshape(b, s, kvh, hd)
-    v = linear(p["wv"], x, quant=cfg.quant, act_quant=cfg.act_quant).reshape(b, s, kvh, hd)
+    q = reshape(linear(p["wq"], x, quant=cfg.quant, act_quant=cfg.act_quant), b, s, h, hd)
+    k = reshape(linear(p["wk"], x, quant=cfg.quant, act_quant=cfg.act_quant), b, s, kvh, hd)
+    v = reshape(linear(p["wv"], x, quant=cfg.quant, act_quant=cfg.act_quant), b, s, kvh, hd)
     q = apply_rope(q, positions, cfg.rope_theta, partial=cfg.partial_rotary_factor)
     k = apply_rope(k, positions, cfg.rope_theta, partial=cfg.partial_rotary_factor)
+    if shard is not None:
+        q = shard(q, "batch", "seq", "heads", None)
+        k = shard(k, "batch", "seq", "kv_heads", None)
+        v = shard(v, "batch", "seq", "kv_heads", None)
 
     new_cache = None
     if cache is not None and s == 1:
@@ -203,8 +269,8 @@ def gqa_forward(
         idx = torch.as_tensor(cache_len, device=x.device).reshape(())
         _cache_write_(cache["k"], k, idx)
         _cache_write_(cache["v"], v, idx)
-        o = decode_attention(q[:, 0], cache["k"], cache["v"], idx + 1, scale)
-        o = o.reshape(b, 1, h * hd)
+        o = decode_attention(q[:, 0], cache["k"], cache["v"], idx + 1, scale, shard=shard)
+        o = reshape(o, b, 1, h * hd)
         new_cache = cache
     else:
         if causal:
@@ -216,12 +282,11 @@ def gqa_forward(
         else:
             if s >= 2048:
                 # encoder self-attention at long S: non-causal flash
-                qg = q.reshape(b, s, kvh, h // kvh, hd)
-                o = flash_attention(qg, k, v, scale, causal=False).reshape(b, s, h, hd)
+                o = _grouped_flash(q, k, v, scale, causal=False)
             else:
                 mask = torch.ones((b, 1, 1, s, s), dtype=torch.bool, device=x.device)
                 o = full_attention(q, k, v, mask, scale)
-        o = o.reshape(b, s, h * hd)
+        o = reshape(o, b, s, h * hd)
         if cache is not None:
             kc = _cache_fill(cache["k"], k)
             vc = _cache_fill(cache["v"], v)
@@ -235,7 +300,14 @@ def _cache_write_(cache, new, idx):
     ``cache`` [B, S, ...] in place; ``new`` is [B, 1, ...].  The index stays
     on the device, so a captured step writes where the cache length says.
     Past the end (``idx >= S``) nothing changes, as the reference's masked
-    select writes nothing there: the last position is written with itself."""
+    select writes nothing there: the last position is written with itself.
+    On a DTensor cache each device writes its own block (of a sequence
+    sharded over the mesh, the block that holds position ``idx``)."""
+    if is_dtensor(cache):
+        pl = cache.placements
+        local_block(_cache_write_, (cache, new, idx),
+                    (pl, batch_split(cache), (Replicate(),) * len(pl)), None)
+        return
     s = cache.shape[1]
     pos = torch.clamp(idx, max=s - 1).reshape(1).to(torch.long)
     keep = cache.index_select(1, pos)
@@ -243,7 +315,15 @@ def _cache_write_(cache, new, idx):
 
 
 def _cache_fill(cache, kv):
-    """Prefill: write kv[0:S] into the cache prefix."""
+    """Prefill: write kv[0:S] into the cache prefix.  On a DTensor cache,
+    laid out by the plan, each device fills its own block: the prefill
+    fills the whole cache there."""
+    if is_dtensor(cache):
+        if kv.shape[1] != cache.shape[1]:
+            raise NotImplementedError(
+                f"a DTensor cache of {cache.shape[1]} positions filled with {kv.shape[1]}")
+        pl = cache.placements
+        return local_block(_cache_fill, (cache, kv), (pl, pl), pl)
     out = cache.clone()
     out[:, : kv.shape[1]] = kv.to(cache.dtype)
     return out
@@ -276,16 +356,15 @@ def cross_attention(p, cfg: ModelConfig, x: torch.Tensor, enc_out: torch.Tensor)
     """Decoder cross-attention over (stub-)encoder output [B, S_enc, D]."""
     b, s, d = x.shape
     h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = linear(p["wq"], x, quant=cfg.quant).reshape(b, s, h, hd)
-    k = linear(p["wk"], enc_out, quant=cfg.quant).reshape(b, -1, kvh, hd)
-    v = linear(p["wv"], enc_out, quant=cfg.quant).reshape(b, -1, kvh, hd)
+    q = reshape(linear(p["wq"], x, quant=cfg.quant), b, s, h, hd)
+    k = reshape(linear(p["wk"], enc_out, quant=cfg.quant), b, -1, kvh, hd)
+    v = reshape(linear(p["wv"], enc_out, quant=cfg.quant), b, -1, kvh, hd)
     scale = 1.0 / math.sqrt(hd)
     if s * k.shape[1] >= 2048 * 1024:
-        qg = q.reshape(b, s, kvh, h // kvh, hd)
-        o = flash_attention(qg, k, v, scale, causal=False).reshape(b, s, h * hd)
+        o = reshape(_grouped_flash(q, k, v, scale, causal=False), b, s, h * hd)
     else:
         mask = torch.ones((b, 1, 1, s, k.shape[1]), dtype=torch.bool, device=x.device)
-        o = full_attention(q, k, v, mask, scale).reshape(b, s, h * hd)
+        o = reshape(full_attention(q, k, v, mask, scale), b, s, h * hd)
     return linear(p["wo"], o, quant=cfg.quant)
 
 
@@ -302,6 +381,7 @@ def mla_forward(
     cache: Optional[dict] = None,
     cache_len=None,
     absorbed_decode: bool = False,
+    shard=None,
 ) -> Tuple[torch.Tensor, Optional[dict]]:
     """MLA: the KV cache holds only [c_kv (kv_lora) ; k_rope] per token.
 
@@ -315,9 +395,9 @@ def mla_forward(
 
     if cfg.q_lora_rank:
         qc = linear(p["w_dq"], x, quant=cfg.quant)
-        q = linear(p["w_uq"], qc, quant=cfg.quant).reshape(b, s, h, dn + dr)
+        q = reshape(linear(p["w_uq"], qc, quant=cfg.quant), b, s, h, dn + dr)
     else:
-        q = linear(p["wq"], x, quant=cfg.quant).reshape(b, s, h, dn + dr)
+        q = reshape(linear(p["wq"], x, quant=cfg.quant), b, s, h, dn + dr)
     q_nope, q_rope = q[..., :dn], q[..., dn:]
     q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
 
@@ -343,30 +423,33 @@ def mla_forward(
             s_rope = einsum("bhd,bsd->bhs", q_rope[:, 0], kr_c.to(q_rope.dtype))
             scores = (s_lat + s_rope).to(torch.float32) * scale
             scores = torch.where(valid[:, None, :], scores, NEG_INF)
-            pr = _seq_softmax(scores)
+            pr = _seq_sharded_softmax(scores, shard)
             o_lat = einsum("bhs,bsr->bhr", pr.to(ckv_c.dtype), ckv_c)  # [B,H,r]
             wuv = _mat(p["w_uv"]).reshape(r, h, dv)
             o = einsum("bhr,rhd->bhd", o_lat.to(x.dtype), wuv.to(x.dtype))
-            o = o.reshape(b, 1, h * dv)
+            o = reshape(o, b, 1, h * dv)
         else:
             # paper-faithful naive decode: expand K/V for the whole cache
-            k_nope = linear(
-                p["w_uk"], ckv_c.to(x.dtype), quant=cfg.quant
-            ).reshape(b, s_kv, h, dn)
-            vv = linear(p["w_uv"], ckv_c.to(x.dtype), quant=cfg.quant).reshape(b, s_kv, h, dv)
+            k_nope = reshape(linear(p["w_uk"], ckv_c.to(x.dtype), quant=cfg.quant),
+                             b, s_kv, h, dn)
+            vv = reshape(linear(p["w_uv"], ckv_c.to(x.dtype), quant=cfg.quant), b, s_kv, h, dv)
             kr = kr_c.to(x.dtype)[:, :, None, :].expand(b, s_kv, h, dr)
             kk = torch.cat([k_nope, kr], dim=-1)
             qq = torch.cat([q_nope, q_rope], dim=-1)[:, 0]  # [B,H,dn+dr]
             scores = einsum("bhd,bshd->bhs", qq, kk).to(torch.float32) * scale
             scores = torch.where(valid[:, None, :], scores, NEG_INF)
-            pr = _seq_softmax(scores)
-            o = einsum("bhs,bshd->bhd", pr.to(vv.dtype), vv).reshape(b, 1, h * dv)
+            pr = _seq_sharded_softmax(scores, shard)
+            o = reshape(einsum("bhs,bshd->bhd", pr.to(vv.dtype), vv), b, 1, h * dv)
     else:
-        k_nope = linear(p["w_uk"], ckv, quant=cfg.quant).reshape(b, s, h, dn)
-        vv = linear(p["w_uv"], ckv, quant=cfg.quant).reshape(b, s, h, dv)
+        k_nope = reshape(linear(p["w_uk"], ckv, quant=cfg.quant), b, s, h, dn)
+        vv = reshape(linear(p["w_uv"], ckv, quant=cfg.quant), b, s, h, dv)
         kr = k_rope[:, :, None, :].expand(b, s, h, dr)
         kk = torch.cat([k_nope, kr], dim=-1)
         qq = torch.cat([q_nope, q_rope], dim=-1)
+        if shard is not None:
+            qq = shard(qq, "batch", "seq", "heads", None)
+            kk = shard(kk, "batch", "seq", "heads", None)
+            vv = shard(vv, "batch", "seq", "heads", None)
         if s >= 4096:
             # heads are uniform here (no GQA grouping): reuse chunked path
             o = chunked_causal_attention(qq, kk, vv, scale, q_chunk=2048, kv_chunk=2048)
@@ -374,7 +457,7 @@ def mla_forward(
             mask = (positions[:, :, None] >= positions[:, None, :])[:, None, None]
             o = full_attention(qq, kk, vv, mask, scale)
         # v_head_dim may differ from qk dim; full_attention returned v dims
-        o = o.reshape(b, s, h * dv)
+        o = reshape(o, b, s, h * dv)
         if cache is not None:
             new_cache = {"ckv": _cache_fill(cache["ckv"], ckv),
                          "krope": _cache_fill(cache["krope"], k_rope)}
@@ -389,12 +472,20 @@ def mla_cache_spec(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.bfloa
     }
 
 
-def _seq_softmax(scores):
-    """Softmax over the cache axis [B, H, S] (max-subtracted, as the
-    reference's flash-decode form)."""
-    m = scores.amax(dim=-1, keepdim=True)
+def _seq_sharded_softmax(scores, shard):
+    """Softmax over a cache_seq-sharded last axis [B, H, S]: an explicit
+    max, exp and sum, with the scores and the probabilities constrained to
+    stay seq-sharded, so only the [B, H, 1] max and sum cross the wire
+    (flash-decode), never the scores.  The reference's formula, on plain
+    tensors and DTensors alike."""
+    if shard is not None:
+        scores = shard(scores, "batch", None, "cache_seq")
+    m = scores.amax(dim=-1, keepdim=True).detach()
     p = torch.exp(scores - m)
-    return p / p.sum(dim=-1, keepdim=True)
+    p = p / p.sum(dim=-1, keepdim=True)
+    if shard is not None:
+        p = shard(p, "batch", None, "cache_seq")
+    return p
 
 
 def _rms(x, g, eps):

@@ -20,6 +20,7 @@ from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import Partial, Shard
 
 from repro_torch.core.ternary import (
     pack_ternary,
@@ -28,6 +29,13 @@ from repro_torch.core.ternary import (
     ternary_quantize_weights,
     unpack_ternary,
 )
+from repro_torch.launch.sharding import (
+    einsum_placements,
+    matmul_placements,
+    vector_beside,
+    weights_beside,
+)
+from repro_torch.models.spmd import batch_split, is_dtensor, local_block, reshape
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -56,7 +64,13 @@ def meta(shape, dtype) -> torch.Tensor:
 
 def einsum(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Two-operand einsum with the reference's dtype promotion (bf16 with
-    float32 computes in float32); `torch.einsum` itself refuses mixed dtypes."""
+    float32 computes in float32); `torch.einsum` itself refuses mixed dtypes.
+    On DTensors each device contracts its blocks
+    (`launch/sharding.einsum_placements`), where DTensor would refuse to flatten
+    a sharded batch dim."""
+    if is_dtensor(a) and is_dtensor(b):
+        ap, bp, op = einsum_placements(eq, a, b)
+        return local_block(lambda a, b: einsum(eq, a, b), (a, b), (ap, bp), op)
     dt = torch.promote_types(a.dtype, b.dtype)
     return torch.einsum(eq, a.to(dt), b.to(dt))
 
@@ -112,7 +126,18 @@ def linear_init(gen, d_in: int, d_out: int, *, bias: bool = False, quant: str = 
 
 
 def linear(p, x: torch.Tensor, *, quant: str = "none", act_quant: str = "none") -> torch.Tensor:
-    """y = act_q(x) @ W_q (+ b) under the configured quantization mode."""
+    """y = act_q(x) @ W_q (+ b) under the configured quantization mode.  On
+    DTensor params each device multiplies its blocks, laid out as Megatron's
+    linears (`launch/sharding.matmul_placements`, a `local_block`)."""
+    w = p.get("w", p.get("packed"))
+    if is_dtensor(w):
+        xp, wp, op = matmul_placements(x, w, 0, 1)
+        keys = list(p)
+        pp = [wp if k in ("w", "packed") else vector_beside(wp, 1) for k in keys]
+        return local_block(
+            lambda x, *leaves: linear(dict(zip(keys, leaves)), x, quant=quant,
+                                      act_quant=act_quant),
+            (x, *p.values()), (xp, *pp), op)
     if act_quant == "ternary":
         x = ste_ternary_acts(x, 0.5)
     if quant == "ternary_packed":
@@ -181,7 +206,7 @@ def apply_rope(
     x1, x2 = xr[..., 0::2], xr[..., 1::2]
     out1 = x1 * cos - x2 * sin
     out2 = x2 * cos + x1 * sin
-    rotated = torch.stack([out1, out2], dim=-1).reshape(*x.shape[:-1], rot_dim)
+    rotated = reshape(torch.stack([out1, out2], dim=-1), *x.shape[:-1], rot_dim)
     if rot_dim < hd:
         rotated = torch.cat([rotated, x[..., rot_dim:].to(torch.float32)], dim=-1)
     return rotated.to(x.dtype)
@@ -196,11 +221,30 @@ def embed_init(gen, vocab: int, d: int, dtype=torch.float32, device="cpu"):
 
 
 def embed_lookup(p, ids: torch.Tensor, *, scale: bool = False) -> torch.Tensor:
-    x = F.embedding(ids, p["table"])
+    """The rows of ``p["table"]`` at ``ids``.  On DTensors each device
+    looks its batch rows up in its vocabulary shard (zero rows for ids
+    outside it): the output is a partial sum over the axes that shard the
+    vocabulary, as an SPMD partitioner's masked gather
+    (`models/spmd.local_block`)."""
+    table = p["table"]
+    if is_dtensor(table):
+        ip = batch_split(ids)
+        tp = weights_beside(ip, table, 0)
+        op = tuple(i if i.is_shard() else Partial() if t == Shard(0) else
+                   Shard(2) if t == Shard(1) else t for i, t in zip(ip, tp))
+        x = local_block(F.embedding, (ids, table), (ip, tp), op)
+    else:
+        x = F.embedding(ids, table)
     if scale:
         x = x * math.sqrt(x.shape[-1])
     return x
 
 
 def logits_from_embedding(p, x: torch.Tensor) -> torch.Tensor:
-    return x @ p["table"].to(x.dtype).T
+    """``x @ table.T``; on a DTensor table as a column-parallel linear over
+    the vocabulary shards (`launch/sharding.matmul_placements`)."""
+    table = p["table"]
+    if is_dtensor(table):
+        xp, tp, op = matmul_placements(x, table, 1, 0)
+        return local_block(lambda x, t: x @ t.to(x.dtype).T, (x, table), (xp, tp), op)
+    return x @ table.to(x.dtype).T

@@ -22,11 +22,13 @@ from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import Replicate, Shard
 
 from repro_torch.core.tcn import unwrap_time_axis, wrap_time_axis
 from repro_torch.kernels.ref import exact_float32
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import linear, linear_init, meta, normal, silu
+from repro_torch.models.spmd import is_dtensor, local_block, reshape
 
 
 def mamba_init(gen, cfg: ModelConfig, dtype=torch.float32, *, lead=(), device="cpu"):
@@ -63,7 +65,15 @@ def mamba_init(gen, cfg: ModelConfig, dtype=torch.float32, *, lead=(), device="c
 def _causal_depthwise_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                            use_tcn_mapping: bool = False) -> torch.Tensor:
     """x: [B, T, C]; w: [K, C] depthwise causal (cross-correlation:
-    y[t] = sum_j w[j] x[t - K + 1 + j])."""
+    y[t] = sum_j w[j] x[t - K + 1 + j]).  On DTensors each device convolves
+    its batch rows and channels (`models/spmd.local_block`)."""
+    if is_dtensor(x):
+        xp = tuple(Shard(0) if p == Shard(0) else p if p == Shard(2) else Replicate()
+                   for p in x.placements)
+        wp = tuple(Shard(1) if p == Shard(2) else Replicate() for p in xp)
+        bp = tuple(Shard(0) if p == Shard(2) else Replicate() for p in xp)
+        return local_block(lambda x, w, b: _causal_depthwise_conv(x, w, b, use_tcn_mapping),
+                           (x, w, b), (xp, wp, bp), xp)
     w = w.to(x.dtype)  # f32 master weights vs bf16 activations
     b = b.to(x.dtype)
     k, c = w.shape
@@ -89,10 +99,23 @@ def _conv_step(hist: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Te
 
 
 def _ssd_chunked(x, dt, a_log, bmat, cmat, h0, chunk: int):
-    """SSD scan.  x: [B,T,H,P], dt: [B,T,H], bmat/cmat: [B,T,N], h0: [B,H,P,N].
-    Returns (y [B,T,H,P], h_final)."""
+    """SSD scan.  x: [B,T,H,P], dt: [B,T,H], bmat/cmat: [B,T,N], h0: [B,H,P,N]
+    (None: zeros).  Returns (y [B,T,H,P], h_final).  On DTensors each device
+    scans its batch rows and heads (`models/spmd.local_block`)."""
+    if is_dtensor(x):
+        xp = tuple(p if p in (Shard(0), Shard(2)) else Replicate() for p in x.placements)
+        ap = tuple(Shard(0) if p == Shard(2) else Replicate() for p in xp)
+        bp = tuple(p if p == Shard(0) else Replicate() for p in xp)
+        hp = tuple(Shard(1) if p == Shard(2) else p for p in xp)
+        return local_block(
+            lambda x, dt, a_log, bmat, cmat, h0: _ssd_chunked(x, dt, a_log, bmat, cmat, h0,
+                                                              chunk),
+            (x, dt, a_log, bmat, cmat, h0), (xp, xp, ap, bp, bp, None if h0 is None else hp),
+            (xp, hp))
     bsz, t, h, p = x.shape
     n = bmat.shape[-1]
+    if h0 is None:
+        h0 = torch.zeros((bsz, h, p, n), dtype=torch.float32, device=x.device)
     l = min(chunk, t)
     pad = (-t) % l
     if pad:
@@ -143,6 +166,7 @@ def mamba_forward(
     x: torch.Tensor,
     *,
     state: Optional[dict] = None,
+    shard=None,
 ) -> Tuple[torch.Tensor, Optional[dict]]:
     """x: [B, T, D].  With ``state`` and T==1: O(1) decode step, which
     writes the given state in place and returns it.
@@ -167,7 +191,7 @@ def mamba_forward(
         xs = silu(_conv_step(hx, p["conv_x_w"], p["conv_x_b"]))
         bm = silu(_conv_step(hb, p["conv_B_w"], p["conv_B_b"]))
         cm = silu(_conv_step(hc, p["conv_C_w"], p["conv_C_b"]))
-        xs = xs.reshape(bsz, nh, hp)
+        xs = reshape(xs, bsz, nh, hp)
         dtv = F.softplus(dt_raw[:, 0].to(torch.float32) + p["dt_bias"])  # [B,H]
         a = -torch.exp(p["A_log"])
         decay = torch.exp(dtv * a)  # [B,H]
@@ -175,7 +199,7 @@ def mamba_forward(
             "bh,bn,bhp->bhpn", dtv, bm, xs
         )
         y = torch.einsum("bn,bhpn->bhp", cm, h_new) + p["D"][None, :, None] * xs
-        y = y.reshape(bsz, 1, di)
+        y = reshape(y, bsz, 1, di)
         for name, v in (("h", h_new), ("conv_x", hx[:, 1:]), ("conv_B", hb[:, 1:]),
                         ("conv_C", hc[:, 1:])):
             state[name].copy_(v)
@@ -186,16 +210,16 @@ def mamba_forward(
         )
         bm = silu(_causal_depthwise_conv(bin_, p["conv_B_w"], p["conv_B_b"]))
         cm = silu(_causal_depthwise_conv(cin, p["conv_C_w"], p["conv_C_b"]))
-        xs = xs.reshape(bsz, t, nh, hp)
+        xs = reshape(xs, bsz, t, nh, hp)
+        if shard is not None:
+            xs = shard(xs, "batch", "seq", "heads", None)
         dtv = F.softplus(dt_raw.to(torch.float32) + p["dt_bias"])  # [B,T,H]
-        h0 = (torch.zeros((bsz, nh, hp, n), dtype=torch.float32, device=x.device)
-              if state is None else state["h"])
         y, h_fin = _ssd_chunked(
-            xs, dtv, p["A_log"], bm.to(torch.float32), cm.to(torch.float32), h0,
-            cfg.ssm_chunk,
+            xs, dtv, p["A_log"], bm.to(torch.float32), cm.to(torch.float32),
+            None if state is None else state["h"], cfg.ssm_chunk,
         )
         y = y.to(torch.float32) + p["D"][None, None, :, None] * xs.to(torch.float32)
-        y = y.reshape(bsz, t, di)
+        y = reshape(y, bsz, t, di)
         if state is not None:
             k = cfg.ssm_conv
 

@@ -24,7 +24,7 @@ def mlp_init(gen, cfg: ModelConfig, d_ff: int | None = None, dtype=torch.float32
     return p
 
 
-def mlp_forward(p, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+def mlp_forward(p, cfg: ModelConfig, x: torch.Tensor, *, shard=None) -> torch.Tensor:
     q, aq = cfg.quant, cfg.act_quant
     up = linear(p["w_up"], x, quant=q, act_quant=aq)
     if cfg.mlp_type == "swiglu":
@@ -35,4 +35,6 @@ def mlp_forward(p, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
         h = F.gelu(gate, approximate="tanh") * up
     else:
         h = F.gelu(up, approximate="tanh")
+    if shard is not None:
+        h = shard(h, "batch", "seq", "mlp")
     return linear(p["w_down"], h, quant=q, act_quant=aq)

@@ -28,7 +28,9 @@ Modes: ``train`` (logits of every position), ``prefill`` (fills caches),
 Decode writes the cache it is given in place — each layer into its slice of
 the stacked segment cache, ``len`` advanced by one — and returns that same
 cache; `launch.steps.make_decode_step` copies it first unless it donates it.
-``shard`` is accepted and is the identity (the port runs on one card).
+``shard`` is the activation-constraint function of `launch/sharding.py`,
+applied where the reference applies it, with the same logical axis names;
+`_noshard` (the default) leaves every activation as it is.
 """
 from __future__ import annotations
 
@@ -37,10 +39,12 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import Partial, Replicate
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.ternary import ste_ternary_weights, unpack_ternary
 from repro_torch.device import resolve_device
+from repro_torch.launch.sharding import weights_beside
 from repro_torch.models.attention import (
     attn_init,
     cross_attention,
@@ -65,9 +69,22 @@ from repro_torch.models.layers import (
 from repro_torch.models.mamba2 import mamba_forward, mamba_init, mamba_state_spec
 from repro_torch.models.mlp import mlp_forward, mlp_init
 from repro_torch.models.moe import moe_forward, moe_init
+from repro_torch.models.spmd import (
+    VocabShards,
+    batch_like,
+    batch_split,
+    is_dtensor,
+    local_block,
+    stack,
+    unbind,
+)
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 AUX_LOSS_COEF = 0.01
+
+
+def _noshard(x, *names):
+    return x
 
 # ---------------------------------------------------------------------------
 # Segment plan
@@ -142,21 +159,24 @@ def _sublayer_init(gen, cfg: ModelConfig, mixer: str, ffn: str, cross: bool, dty
 
 def _sublayer_forward(
     p, cfg: ModelConfig, mixer: str, ffn: str, x, positions, *,
-    causal=True, cache=None, cache_len=None, enc_out=None,
+    causal=True, cache=None, cache_len=None, enc_out=None, shard=_noshard,
 ):
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = apply_norm(p["norm1"], x, norm_type=cfg.norm_type, eps=cfg.norm_eps)
+    # sequence parallelism ends at the mixer: the sequence is gathered once,
+    # before the QKV / SSM projections
+    h = shard(h, "batch", None, "embed")
     if mixer == "mamba":
-        mix, new_cache = mamba_forward(p["mamba"], cfg, h, state=cache)
+        mix, new_cache = mamba_forward(p["mamba"], cfg, h, state=cache, shard=shard)
     elif mixer == "mla":
         mix, new_cache = mla_forward(
             p["attn"], cfg, h, positions, cache=cache, cache_len=cache_len,
-            absorbed_decode=cfg.mla_absorbed,
+            absorbed_decode=cfg.mla_absorbed, shard=shard,
         )
     else:
         mix, new_cache = gqa_forward(
             p["attn"], cfg, h, positions, causal=causal,
-            cache=cache, cache_len=cache_len,
+            cache=cache, cache_len=cache_len, shard=shard,
         )
     x = x + mix
     if "cross" in p and enc_out is not None:
@@ -165,10 +185,13 @@ def _sublayer_forward(
     if ffn != "none":
         h2 = apply_norm(p["norm2"], x, norm_type=cfg.norm_type, eps=cfg.norm_eps)
         if ffn == "moe":
-            y, aux = moe_forward(p["moe"], cfg, h2)
+            # the dispatch cumsums along the sequence: gather it first
+            h2 = shard(h2, "batch", None, "embed")
+            y, aux = moe_forward(p["moe"], cfg, h2, shard=shard)
         else:
-            y = mlp_forward(p["mlp"], cfg, h2)
+            y = mlp_forward(p["mlp"], cfg, h2, shard=shard)
         x = x + y
+    x = shard(x, "batch", "res_seq", "embed")
     return x, new_cache, aux
 
 
@@ -202,18 +225,18 @@ def _segment_cache_spec(cfg: ModelConfig, seg: Segment, batch: int, max_len: int
 def _stack_trees(trees: List[Any]):
     """Per-layer trees of equal structure -> one tree stacked on axis 0."""
     columns = zip(*(tree_leaves(t) for t in trees))
-    return tree_unflatten(trees[0], [torch.stack(col) for col in columns])
+    return tree_unflatten(trees[0], [stack(col) for col in columns])
 
 
 def _unstack(tree, n: int) -> List[Any]:
     """A tree stacked on axis 0 -> its ``n`` per-layer trees (views)."""
-    columns = [torch.unbind(a) for a in tree_leaves(tree)]
+    columns = [unbind(a) for a in tree_leaves(tree)]
     return [tree_unflatten(tree, [col[i] for col in columns]) for i in range(n)]
 
 
 def _segment_forward(
     seg_params, cfg: ModelConfig, seg: Segment, x, positions, *,
-    cache=None, cache_len=None, enc_out=None,
+    cache=None, cache_len=None, enc_out=None, shard=_noshard,
 ):
     def layer(lp, x, aux, cache_in):
         layer_cache = {}
@@ -222,7 +245,7 @@ def _segment_forward(
             x, c_out, aux_j = _sublayer_forward(
                 lp[f"sub{j}"], cfg, seg.mixers[j], seg.ffns[j], x, positions,
                 causal=seg.causal, cache=sub_cache, cache_len=cache_len,
-                enc_out=enc_out,
+                enc_out=enc_out, shard=shard,
             )
             layer_cache[f"sub{j}"] = c_out if c_out is not None else {}
             aux = aux + aux_j
@@ -307,13 +330,13 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.bfloat16,
     )
 
 
-def _encode(params, cfg: ModelConfig, enc_embeds):
+def _encode(params, cfg: ModelConfig, enc_embeds, shard=_noshard):
     x = enc_embeds
     b, s, _ = x.shape
-    positions = torch.arange(s, device=x.device)[None].expand(b, s)
+    positions = batch_like(torch.arange(s, device=x.device)[None].expand(b, s), x)
     for i, seg in enumerate(encoder_segments(cfg)):
         x, _, _ = _segment_forward(
-            params["enc"][f"seg{i}"], cfg, seg, x, positions
+            params["enc"][f"seg{i}"], cfg, seg, x, positions, shard=shard
         )
     return apply_norm(params["enc"]["norm"], x, norm_type=cfg.norm_type, eps=cfg.norm_eps)
 
@@ -344,8 +367,9 @@ def forward(
     enc_embeds: [B, S_enc, D] stub audio frames for the enc-dec encoder.
     logits_mode: "all" | "last" (prefill wants only the sampling position) |
     "hidden" (return final hidden states in .logits).
-    shard: accepted for the reference's signature; the identity here.
+    shard: the activation-constraint function (None: `_noshard`).
     """
+    shard = shard or _noshard
     b, s = tokens.shape
     x = embed_lookup(params["embed"], tokens, scale=cfg.embed_scale)
     x = x.to(torch_dtype(cfg.dtype))
@@ -353,6 +377,7 @@ def forward(
     if frontend_embeds is not None and mode != "decode":
         x = torch.cat([frontend_embeds.to(x.dtype), x], dim=1)
         n_front = frontend_embeds.shape[1]
+    x = shard(x, "batch", "res_seq", "embed")
     seq = x.shape[1]
 
     enc_out = None
@@ -361,14 +386,14 @@ def forward(
             enc_out = cache["enc_out"].to(x.dtype)
         else:
             assert enc_embeds is not None, "enc-dec model needs enc_embeds"
-            enc_out = _encode(params, cfg, enc_embeds.to(x.dtype))
+            enc_out = _encode(params, cfg, enc_embeds.to(x.dtype), shard=shard)
 
     if mode == "decode":
         cache_len = cache["len"]
         positions = cache_len.reshape(1, 1).expand(b, 1)
     else:
         cache_len = None
-        positions = torch.arange(seq, device=x.device)[None].expand(b, seq)
+        positions = batch_like(torch.arange(seq, device=x.device)[None].expand(b, seq), x)
 
     new_cache = {} if cache is not None else None
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -376,7 +401,7 @@ def forward(
         seg_cache = None if cache is None else cache[f"seg{i}"]
         x, seg_new, aux = _segment_forward(
             params[f"seg{i}"], cfg, seg, x, positions,
-            cache=seg_cache, cache_len=cache_len, enc_out=enc_out,
+            cache=seg_cache, cache_len=cache_len, enc_out=enc_out, shard=shard,
         )
         aux_total = aux_total + aux
         if new_cache is not None:
@@ -397,6 +422,7 @@ def forward(
         if cfg.logit_softcap:
             cap = weak_scalar(cfg.logit_softcap, logits.dtype)
             logits = torch.tanh(logits / cap) * cap
+        logits = shard(logits, "batch", "seq", "vocab")
 
     if mode == "decode":
         cache["len"].add_(1)
@@ -413,16 +439,20 @@ def forward(
 # Training loss
 # ---------------------------------------------------------------------------
 
-def _ce_chunk(hidden_c, targets_c, head_w, softcap):
-    """CE over one sequence chunk.  hidden_c: [B, c, D]; head_w: [D, V].
+def _ce_chunk(hidden_c, targets_c, head_w, softcap, vocab=None):
+    """CE over one sequence chunk.  hidden_c: [B, c, D]; head_w: [D, V]
+    (with ``vocab``, a `VocabShards`, this device's shard of the columns).
     Returns (summed NLL float32, unmasked targets int32)."""
     logits = (hidden_c @ head_w.to(hidden_c.dtype)).to(torch.float32)
     if softcap:
         logits = torch.tanh(logits / softcap) * softcap
     mask = targets_c >= 0
     tgt = torch.clamp(targets_c, min=0).long()
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, tgt[..., None])[..., 0]
+    if vocab is None:
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, tgt[..., None])[..., 0]
+    else:
+        logz, gold = vocab.logz_gold(logits, tgt)
     return torch.sum((logz - gold) * mask), torch.sum(mask, dtype=torch.int32)
 
 
@@ -433,6 +463,28 @@ def chunked_ce_loss(hidden, targets, head_w, *, softcap=0.0, chunk: int = 512):
     instead of kept (a ``gemma-2b`` step at S = 4096 would otherwise keep 8
     chunks of [1, 512, 256000] float32 logits and their softmax).  Returns
     (mean NLL over targets >= 0, their count)."""
+    nll, ntok = _ce_sums(hidden, targets, head_w, softcap, chunk)
+    return nll / torch.clamp(ntok, min=1), ntok
+
+
+def _ce_sums(hidden, targets, head_w, softcap, chunk, vocab=None):
+    """(summed NLL, count) of `chunked_ce_loss`.  On DTensors each device
+    runs its batch rows against its vocabulary shard of ``head_w``
+    (`models/spmd.local_block`), the log-normaliser and the target's logit
+    all-reduced over the vocabulary shards (`models/spmd.VocabShards`, as
+    Megatron's vocab-parallel cross-entropy); both sums come out as partial
+    sums over the batch shards."""
+    if is_dtensor(hidden):
+        hp = batch_split(hidden)
+        wp = weights_beside(hp, head_w, 1)
+        mesh = hidden.device_mesh
+        dims = [i for i, p in enumerate(wp) if p.is_shard()]
+        out = tuple(Partial() if p.is_shard() else Replicate() for p in hp)
+        return local_block(
+            lambda h, t, w: _ce_sums(h, t, w, softcap, chunk,
+                                     VocabShards(mesh, dims, w.shape[1]) if dims else None),
+            (hidden, targets, head_w), (hp, hp if is_dtensor(targets) else None, wp),
+            (out, out))
     b, s, d = hidden.shape
     c = min(chunk, s)
     pad = (-s) % c
@@ -443,11 +495,12 @@ def chunked_ce_loss(hidden, targets, head_w, *, softcap=0.0, chunk: int = 512):
     nll = torch.zeros((), dtype=torch.float32, device=hidden.device)
     ntok = torch.zeros((), dtype=torch.int32, device=hidden.device)
     for i in range(hidden.shape[1] // c):
-        args = (hidden[:, i * c:(i + 1) * c], targets[:, i * c:(i + 1) * c], head_w, softcap)
+        args = (hidden[:, i * c:(i + 1) * c], targets[:, i * c:(i + 1) * c], head_w, softcap,
+                vocab)
         nll_i, nt_i = (checkpoint(_ce_chunk, *args, use_reentrant=False) if remat
                        else _ce_chunk(*args))
         nll, ntok = nll + nll_i, ntok + nt_i
-    return nll / torch.clamp(ntok, min=1), ntok
+    return nll, ntok
 
 
 def lm_loss(

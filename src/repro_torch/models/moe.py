@@ -18,10 +18,14 @@ from typing import Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import Partial, Replicate
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.launch.sharding import weights_beside
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import einsum, linear, linear_init, normal, silu
+from repro_torch.models.spmd import batch_split, is_dtensor, local_block
+from repro_torch.tree import tree_leaves, tree_map_with_path, tree_unflatten
 
 
 def moe_init(gen, cfg: ModelConfig, dtype=torch.float32, *, lead=(), device="cpu"):
@@ -60,7 +64,8 @@ def _act(cfg, gate, up):
 MOE_SEQ_CHUNK = 1024  # dispatch-group length along the sequence
 
 
-def moe_forward(p, cfg: ModelConfig, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def moe_forward(p, cfg: ModelConfig, x: torch.Tensor, *,
+                shard=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: [B, S, D] -> (y, aux_loss).
 
     The sequence is processed in chunks of MOE_SEQ_CHUNK tokens (one chunk
@@ -74,27 +79,77 @@ def moe_forward(p, cfg: ModelConfig, x: torch.Tensor) -> Tuple[torch.Tensor, tor
     if s % c:
         c = s  # odd lengths: single chunk
     if s == c:
-        return _moe_chunk(p, cfg, x)
+        return _moe_chunk(p, cfg, x, shard)
     n = s // c
     remat = torch.is_grad_enabled()
     ys, auxs = [], []
     for i in range(n):
         xc = x[:, i * c:(i + 1) * c]
-        y, aux = (checkpoint(lambda xc: _moe_chunk(p, cfg, xc), xc, use_reentrant=False)
-                  if remat else _moe_chunk(p, cfg, xc))
+        y, aux = (checkpoint(lambda xc: _moe_chunk(p, cfg, xc, shard), xc,
+                             use_reentrant=False)
+                  if remat else _moe_chunk(p, cfg, xc, shard))
         ys.append(y)
         auxs.append(aux)
     return torch.cat(ys, dim=1), torch.stack(auxs).mean()
 
 
-def _moe_chunk(p, cfg: ModelConfig, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def _moe_chunk(p, cfg: ModelConfig, x: torch.Tensor,
+               shard=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Group-local dispatch (group = batch row): the position-in-expert is a
-    cumsum along the flattened (token, choice) axis of each row."""
-    b, s, d = x.shape
-    e, k = cfg.n_experts, cfg.experts_per_tok
-
+    cumsum along the flattened (token, choice) axis of each row.  On
+    DTensors the router runs as DTensor ops, and the dispatch, the experts
+    and the combine run on each device's batch rows against its shards of
+    the experts' d_ff (`models/spmd.local_block`): tokens stay data-sharded,
+    the weights are gathered over the data axes (FSDP), and the output is a
+    partial sum over the axes that split d_ff, as a row-parallel MLP's."""
     # ---- routing (float32 for numerical stability) ----
     logits = linear(p["router"], x.to(torch.float32))  # [B, S, E]
+    experts = {k: v for k, v in p.items() if k != "router"}
+    if not is_dtensor(x):
+        y, aux, _, _ = _moe_dispatch(experts, cfg, x, logits, shard)
+        return y, aux
+    xp = batch_split(x)
+    ws = tree_leaves(experts)
+    tp_dims = tree_leaves(tree_map_with_path(_tp_dim, experts))
+    wps = [weights_beside(xp, w, d) for w, d in zip(ws, tp_dims)]
+    yp = tuple(xp[i] if xp[i].is_shard() else
+               Partial() if any(wp[i].is_shard() for wp in wps) else Replicate()
+               for i in range(len(xp)))
+    # the aux loss's factors from each device's rows: their mean over the
+    # batch shards is the step's (an all-reduce each, as an SPMD partitioner
+    # reduces them), and the aux is their product's sum
+    mp = tuple(Partial("avg") if q.is_shard() else Replicate() for q in xp)
+
+    def local(x, logits, *ws):
+        y, _, me, ce = _moe_dispatch(tree_unflatten(experts, list(ws)), cfg, x, logits, shard)
+        return y, me, ce
+
+    y, me, ce = local_block(local, (x, logits, *ws), (xp, xp, *wps), (yp, mp, mp))
+    return y, cfg.n_experts * torch.sum(me * ce)
+
+
+def _tp_dim(path, w) -> int:
+    """The tensor-parallel (d_ff) dim of an expert leaf: the banks' F in
+    [E, D, F] / [E, F, D], the shared experts' column-parallel output and
+    row-parallel input (-1: none)."""
+    keys = [k.key for k in path]
+    if keys[0] in ("w_up", "w_gate"):
+        return 2
+    if keys[0] == "w_down":
+        return 1
+    if keys[0] == "shared_down":
+        return 0 if keys[-1] in ("w", "packed") else -1
+    return 1 if keys[-1] in ("w", "packed") else 0
+
+
+def _moe_dispatch(p, cfg: ModelConfig, x: torch.Tensor, logits: torch.Tensor,
+                  shard=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`_moe_chunk` from the router logits on: top-k, dispatch, the experts,
+    combine and the shared experts.  Returns (y, the Switch aux loss, and
+    its factors: the mean router probability per expert [E] and the
+    fraction of choices routed to each expert [E])."""
+    b, s, d = x.shape
+    e, k = cfg.n_experts, cfg.experts_per_tok
     probs = torch.softmax(logits, dim=-1)
     gate_vals, expert_ids = torch.topk(probs, k, dim=-1)  # [B, S, k], descending
     gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True), min=1e-9)
@@ -123,6 +178,9 @@ def _moe_chunk(p, cfg: ModelConfig, x: torch.Tensor) -> Tuple[torch.Tensor, torc
     # several tokens, and it is sliced off below.
     buf.index_put_((rows, slot), xk, accumulate=True)
     expert_in = buf[:, : e * cap].reshape(b, e, cap, d)
+    # tokens stay data-sharded; the experts' d_ff shards over "model"
+    if shard is not None:
+        expert_in = shard(expert_in, "moe_tokens", "moe_experts", None, None)
 
     # ---- expert FFN (tokens x all experts) ----
     up = einsum("becd,edf->becf", expert_in, p["w_up"].to(expert_in.dtype))
@@ -131,10 +189,14 @@ def _moe_chunk(p, cfg: ModelConfig, x: torch.Tensor) -> Tuple[torch.Tensor, torc
         h = _act(cfg, gate, up)
     else:
         h = _act(cfg, None, up)
+    if shard is not None:
+        h = shard(h, "moe_tokens", "moe_experts", None, "mlp")
     out = einsum("becf,efd->becd", h, p["w_down"].to(h.dtype))
 
     # ---- combine (gather per group) ----
     out_b = out.reshape(b, e * cap, d)
+    if shard is not None:
+        out_b = shard(out_b, "moe_tokens", None, None)
     out_pad = torch.cat([out_b, torch.zeros((b, 1, d), dtype=out_b.dtype, device=x.device)],
                         dim=1)
     gathered = torch.gather(out_pad, 1, slot[..., None].expand(b, s * k, d))  # [B, S*k, D]
@@ -151,4 +213,4 @@ def _moe_chunk(p, cfg: ModelConfig, x: torch.Tensor) -> Tuple[torch.Tensor, torc
             sh = _act(cfg, None, supv)
         y = y + linear(p["shared_down"], sh, quant=cfg.quant, act_quant=cfg.act_quant)
 
-    return y.to(x.dtype), aux
+    return y.to(x.dtype), aux, me, ce

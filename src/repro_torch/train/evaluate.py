@@ -54,6 +54,8 @@ class EvalReport:
     deployed_accuracy: float
     backend: str
     n_examples: int
+    # the two forwards' builds: one each per (shape, dtype) of the eval batches
+    step_builds: int = 0
 
     @property
     def gap(self) -> float:
@@ -85,19 +87,28 @@ def evaluate(
     (`kernels.ref.deterministic_float32`).  ``deployed`` defaults to
     quantizing ``params`` fresh, calibrated on the first eval batch (the
     recommended deploy recipe).  Where the reference jits both forwards per
-    call, each is a `repro_torch.capture.CapturedStep` here: on the card the
-    first batch runs eagerly and is captured, the others replay, each batch
-    copied into the forward's one static input."""
+    call, each is a `repro_torch.capture.CapturedStep` here, one per (shape,
+    dtype) of the eval batches, as ``jax.jit`` keeps one executable per
+    shape: on the card the first batch of a shape runs eagerly and is
+    captured, the others of that shape replay, each batch copied into its
+    forward's static input."""
     dev = tree_leaves(params)[0].device
     batches = [(torch.from_numpy(np.asarray(x)).to(dev), np.asarray(y))
                for x, y in eval_batches(pipeline, n_batches)]
     if deployed is None:
         deployed = prog.quantize(params, calib=batches[0][0], nu=nu)
-    qat_fwd = CapturedStep(lambda x: prog.forward_qat(params, x, nu=nu), dev, inputs=(0,))
-    dep_fwd = CapturedStep(lambda x: deployed.forward(x, backend=backend), dev, inputs=(0,))
+    forwards: Dict[tuple, tuple] = {}  # (shape, dtype) -> (qat, deployed)
     hits_q = hits_d = total = 0
     with torch.no_grad(), deterministic_float32():
         for x, y in batches:
+            key = (tuple(x.shape), x.dtype)
+            if key not in forwards:
+                forwards[key] = (
+                    CapturedStep(lambda x: prog.forward_qat(params, x, nu=nu), dev,
+                                 inputs=(0,)),
+                    CapturedStep(lambda x: deployed.forward(x, backend=backend), dev,
+                                 inputs=(0,)))
+            qat_fwd, dep_fwd = forwards[key]
             yq = qat_fwd(x).argmax(-1).cpu().numpy()
             yd = dep_fwd(x).argmax(-1).cpu().numpy()
             hits_q += int((yq == y).sum())
@@ -108,4 +119,5 @@ def evaluate(
         deployed_accuracy=hits_d / total,
         backend=backend,
         n_examples=total,
+        step_builds=sum(f.builds for pair in forwards.values() for f in pair),
     )
