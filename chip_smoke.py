@@ -40,7 +40,12 @@ version.  It imports `repro_torch` only.
   * the pool laid across devices — full-width ``dvs_cnn_tcn`` served through
     a `SessionPool` split into two blocks on this card (`PoolSharding`),
     each block its own captured step (kernel K1), and the launcher's
-    ``--dvs --shard``.
+    ``--dvs --shard``;
+  * the LM on a real device mesh — full-width ``gemma-2b`` served (captured
+    decode) and trained (one ternary step) through DTensors on an NCCL
+    process group of world size 1, against the plain steps.  One card
+    measures the path at world size 1 only; several ranks are held on the
+    CPU (gloo) by ``tests/test_torch_spmd_*.py``.  No K1, no K2.
 
 Phases (any failure ends the run with a non-zero exit code and no result
 line):
@@ -203,7 +208,27 @@ line):
                 split, split, plain; 3 rounds of 40 ticks).  ``python -m
                 repro_torch.launch.serve --dvs --shard`` exits 0 and prints
                 ``shard=False`` (one card).  Prints the ``shard`` JSON line
-  12. result    the ``kernels`` JSON line (each kernel's time beside its
+  12. spmd      the LM on a real device mesh: an NCCL process group of
+                world size 1 on this card and a real (1, 1) ``DeviceMesh
+                ("cuda")`` (`launch.mesh.world_mesh`), the params, caches and
+                train state laid out as DTensors by the plan
+                (`launch.sharding.distribute`).  Full-width ``gemma-2b``
+                at the launcher's defaults (4 x 32 prompts, 15 greedy
+                decodes): prefill, then the captured, donated decode step
+                on DTensors beside the plain step's; gates: every step's
+                logits within 2e-3 of the plain (the max difference
+                printed; bit-equal expected at (1, 1)), greedy tokens
+                equal, one capture; host ms per decode token of both in
+                turns (plain, dtensor, dtensor, plain; 2 rounds).  One
+                full-width ``gemma-2b`` ``quant="ternary"`` train step at 1
+                x 4096 tokens on DTensors against the plain step from the
+                same seed (run first, its params kept on the host): the
+                loss within rel 1e-5, every param rtol 1e-3, atol 1e-5;
+                both steps' peak memory.  Prints the group's backend and
+                world size; K1 and K2 launch 0 times.  The group is
+                destroyed at the end of the phase.  Prints the ``spmd``
+                JSON line
+  13. result    the ``kernels`` JSON line (each kernel's time beside its
                 bound, plain version and library yardstick, all from this
                 run), the card line, and the last line
                 ``{"ok": true, "device": {...}}``
@@ -325,6 +350,18 @@ DRYRUN_TRAIN = ("gemma-2b", 64, 4)          # SMOKE arch, seq, batch
 
 # the split pool: full-width dvs_cnn_tcn, pool 8, in two blocks on this card
 SHARD_BLOCKS = 2
+
+# the LM on a real mesh: an NCCL group of world size 1 and a (1, 1) mesh of
+# this card; the launcher's serving defaults (batch, prompt, tokens: 15
+# greedy decodes) and the logits' tolerance against the plain step (the
+# reference's own, as LM_CONSISTENCY_TOL); one ternary train step at the
+# phase-9 shape, held at the CPU tests' tolerances (the loss within rel
+# 1e-5, params rtol 1e-3, atol 1e-5)
+SPMD_ARCH = "gemma-2b"
+SPMD_SERVE = (4, 32, 16)
+SPMD_TOL = 2e-3
+SPMD_TIMING_ROUNDS = 2      # rounds of plain, dtensor, dtensor, plain
+SPMD_TRAIN_TOL = {"loss_rtol": 1e-5, "rtol": 1e-3, "atol": 1e-5}
 
 # (name, H, W, C_in, C_out, K, pool, input dtype) — the nine launches of one
 # pool tick of dvs_cnn_tcn (5 conv + 4 TCN layers; TCN maps carry the extra
@@ -2452,6 +2489,196 @@ def shard_path(dev):
             "phase_s": time.perf_counter() - t_phase}, k1_split
 
 
+def _spmd_serve(rules, dev):
+    """Full-width SPMD_ARCH: prefill and SPMD_SERVE's greedy decodes through
+    the captured, donated decode step, plain and on DTensors of ``rules``'
+    mesh; logits within SPMD_TOL, tokens equal, one capture; then host ms
+    per decode token of both in turns, each window after a fresh prefill."""
+    from repro_torch.capture import CapturedStep
+    from repro_torch.configs import get_config
+    from repro_torch.launch.sharding import distribute
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models.model import init_params
+    from repro_torch.tree import tree_leaves
+
+    cfg = get_config(SPMD_ARCH)
+    batch, prompt, n_tok = SPMD_SERVE
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    params = init_params(cfg, gen, dtype=torch.float32, device=dev)
+    dparams = distribute(params, rules.param_shardings(params))
+    shared = all(a.data_ptr() == b.to_local().data_ptr()
+                 for a, b in zip(tree_leaves(params), tree_leaves(dparams)))
+    tokens = torch.randint(0, cfg.vocab_size, (batch, prompt), generator=gen, device=dev)
+    shard = rules.make_shard_fn()
+    runs = {}
+    for kind, p, kw in (("plain", params, {}),
+                        ("dtensor", dparams, {"shard": shard, "cache_init": rules.cache_init})):
+        prefill = make_prefill_step(cfg, prompt + n_tok, cache_dtype=torch.float32, **kw)
+        decode = CapturedStep(make_decode_step(cfg, shard=kw.get("shard"), donate=True), dev,
+                              inputs=(1,))
+        logits, cache = prefill(p, {"tokens": tokens})
+        seen = [logits]
+        tok = torch.argmax(logits, dim=-1)[:, None]
+        toks = [tok]
+        for _ in range(n_tok - 1):
+            logits, cache = decode(p, tok, cache)
+            seen.append(logits)
+            tok = torch.argmax(logits, dim=-1)[:, None]
+            toks.append(tok)
+        if type(logits) is not torch.Tensor or not bool(torch.isfinite(logits).all()):
+            fail(f"spmd {kind}: the decode step's logits are not a finite plain tensor")
+        runs[kind] = {"logits": seen, "tokens": torch.cat(toks, dim=1), "prefill": prefill,
+                      "decode": decode, "params": p, "cache": cache}
+    diffs = [float((a - b).abs().max()) for a, b in zip(runs["plain"]["logits"],
+                                                        runs["dtensor"]["logits"])]
+    if max(diffs) > SPMD_TOL:
+        fail(f"spmd: DTensor logits differ from the plain step's by {max(diffs):.3e} "
+             f"(> {SPMD_TOL}) at step {int(np.argmax(diffs))}")
+    if not torch.equal(runs["plain"]["tokens"], runs["dtensor"]["tokens"]):
+        fail("spmd: the DTensor step's greedy tokens differ from the plain step's")
+    captured = runs["dtensor"]["decode"]
+    if captured.builds != 1 or not captured.captured:
+        fail(f"spmd: the DTensor decode step was built {captured.builds} times "
+             f"(captured: {captured.captured})")
+
+    host = {"plain": [], "dtensor": []}
+    for _ in range(SPMD_TIMING_ROUNDS):
+        for kind in ("plain", "dtensor", "dtensor", "plain"):
+            r = runs[kind]
+            logits, cache = r["prefill"](r["params"], {"tokens": tokens})
+            tok = torch.argmax(logits, dim=-1)[:, None]
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            for _ in range(n_tok - 1):
+                logits, cache = r["decode"](r["params"], tok, cache)
+                tok = torch.argmax(logits, dim=-1)[:, None]
+            torch.cuda.synchronize(dev)
+            host[kind].append((time.perf_counter() - t0) * 1e3 / (n_tok - 1))
+    del runs, params, dparams, cache, logits
+    torch.cuda.empty_cache()
+    return {"arch": cfg.name, "batch": batch, "prompt": prompt, "decodes": n_tok - 1,
+            "max_abs_err": max(diffs), "max_abs_err_per_step": diffs,
+            "bit_equal": max(diffs) == 0.0, "tokens_equal": True,
+            "decode_builds": captured.builds, "params_shared_with_plain": shared,
+            "host_ms_per_token": host,
+            "host_ms_per_token_median": {k: float(np.median(v)) for k, v in host.items()}}
+
+
+def _spmd_train(rules, dev):
+    """One full-width SPMD_ARCH ``quant="ternary"`` donating train step at
+    1 x LM_TRAIN_SEQ tokens, plain then on DTensors from the same seed:
+    the loss and every param at SPMD_TRAIN_TOL, each step's peak memory
+    and host ms (a first call: it includes the step's warm-up)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import LMTokenPipeline
+    from repro_torch.launch.sharding import distribute
+    from repro_torch.launch.steps import make_train_state, make_train_step
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.tree import tree_leaves
+
+    cfg = get_config(SPMD_ARCH, quant="ternary")
+    batch = LMTokenPipeline(cfg.vocab_size, LM_TRAIN_SEQ, 1, seed=SEED).next_batch()
+    out, plain_params = {}, None
+    for kind in ("plain", "dtensor"):
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        state = make_train_state(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                                 device=dev)
+        kw = {}
+        if kind == "dtensor":
+            state = distribute(state, rules.param_shardings(state))
+            kw["shard"] = rules.make_shard_fn()
+        step = make_train_step(cfg, AdamWConfig(**LM_TRAIN_OPT), donate=True, **kw)
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize(dev)
+        ms = (time.perf_counter() - t0) * 1e3
+        out[kind] = {"loss": float(metrics["loss"]), "grad_norm": float(metrics["grad_norm"]),
+                     "host_ms_first_step": ms,
+                     "peak_memory_bytes": torch.cuda.max_memory_allocated(dev)}
+        if kind == "plain":
+            plain_params = [x.detach().to("cpu") for x in tree_leaves(state.params)]
+        else:
+            errs = []
+            for a, b in zip(plain_params, tree_leaves(state.params)):
+                a, b = a.to(dev), b.to_local()
+                errs.append(float((a - b).abs().max()) if a.is_floating_point() else 0.0)
+                if not torch.allclose(b, a, rtol=SPMD_TRAIN_TOL["rtol"],
+                                      atol=SPMD_TRAIN_TOL["atol"]):
+                    fail(f"spmd: a param after the DTensor train step differs from the "
+                         f"plain step's: max|diff| {errs[-1]:.3e}")
+            out["param_max_abs_err"] = max(errs)
+        del state, metrics, step
+    p, d = out["plain"], out["dtensor"]
+    if abs(d["loss"] - p["loss"]) > SPMD_TRAIN_TOL["loss_rtol"] * abs(p["loss"]):
+        fail(f"spmd: the DTensor train step's loss {d['loss']} != the plain {p['loss']}")
+    torch.cuda.empty_cache()
+    return {"arch": cfg.name, "quant": cfg.quant, "batch": 1, "seq": LM_TRAIN_SEQ,
+            "tol": SPMD_TRAIN_TOL, **out}
+
+
+def spmd_path(dev):
+    """Phase 12: the LM on a real device mesh.  An NCCL process group of
+    world size 1 on this card and a (1, 1) ``DeviceMesh("cuda")``:
+    full-width SPMD_ARCH served and trained through DTensors against the
+    plain steps.  No kernel of its own: K1 and K2 must launch 0 times.  The
+    group is destroyed before the phase returns (a dry-run's fake group
+    raises while one exists)."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.kernels.ternary_conv2d import ternary_conv2d_cuda
+    from repro_torch.kernels.ternary_matmul import ternary_matmul_cuda
+    from repro_torch.launch.mesh import world_mesh
+    from repro_torch.launch.sharding import ShardingRules
+
+    t_phase = time.perf_counter()
+    torch.cuda.set_device(dev)
+    (REPO / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="spmd_", dir=REPO / "build") as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/rendezvous", rank=0,
+                                world_size=1)
+        try:
+            mesh = world_mesh((1, 1))
+            backend, world = dist.get_backend(), dist.get_world_size()
+            print(f"[chip_smoke] spmd: process group {backend}, world size {world}, mesh "
+                  f"{mesh!r} on {mesh.device_mesh.device_type}", flush=True)
+            rules = ShardingRules(mesh)
+            ternary_conv2d_cuda.launches = 0
+            ternary_matmul_cuda.launches = 0
+            serve = _spmd_serve(rules, dev)
+            train = _spmd_train(rules, dev)
+            launches = {"ternary_conv2d": ternary_conv2d_cuda.launches,
+                        "ternary_matmul": ternary_matmul_cuda.launches}
+        finally:
+            dist.destroy_process_group()
+    if dist.is_initialized():
+        fail("spmd: the process group outlived the phase")
+    if any(launches.values()):
+        fail(f"spmd: the LM on a mesh launched the CUTIE kernels: {launches}")
+    hm = serve["host_ms_per_token_median"]
+    print(f"[chip_smoke] spmd: {serve['arch']} {serve['batch']}x{serve['prompt']} + "
+          f"{serve['decodes']} captured decodes on DTensors: logits max|diff| vs plain "
+          f"{serve['max_abs_err']:.3e} (tol {SPMD_TOL}), tokens equal, 1 capture; host "
+          f"ms/token plain {' '.join(f'{x:.3f}' for x in serve['host_ms_per_token']['plain'])}"
+          f" (median {hm['plain']:.3f}), dtensor "
+          f"{' '.join(f'{x:.3f}' for x in serve['host_ms_per_token']['dtensor'])} "
+          f"(median {hm['dtensor']:.3f})", flush=True)
+    print(f"[chip_smoke] spmd: {train['arch']} ternary 1x{train['seq']} train step: loss "
+          f"plain {train['plain']['loss']:.6f} dtensor {train['dtensor']['loss']:.6f}, "
+          f"params max|diff| {train['param_max_abs_err']:.3e}; peak "
+          f"{train['plain']['peak_memory_bytes'] / 1e9:.2f} GB plain, "
+          f"{train['dtensor']['peak_memory_bytes'] / 1e9:.2f} GB dtensor; "
+          f"K1 {launches['ternary_conv2d']}, K2 {launches['ternary_matmul']} launches",
+          flush=True)
+    return {"backend": backend, "world_size": world, "mesh": [1, 1], "serve": serve,
+            "train": train, "kernel_launches": launches,
+            "phase_s": time.perf_counter() - t_phase}
+
+
 def main() -> int:
     # phase 1: device
     if not torch.cuda.is_available():
@@ -2505,7 +2732,10 @@ def main() -> int:
     # phase 11: the pool laid across devices
     shard_report, k1_shard = shard_path(dev)
 
-    # phase 12: results
+    # phase 12: the LM on a real device mesh (its group destroyed at the end)
+    spmd_report = spmd_path(dev)
+
+    # phase 13: results
     mm = mm_rows[0]  # the quickstart's launch: 64x2048x512 float32
     kernels = {"kernels": [{
         "name": "ternary_conv2d", "route": "cuda", "source": K1_SOURCE,
@@ -2522,6 +2752,7 @@ def main() -> int:
                                 "(the eager first batch, then replays of its capture)",
         "launches_lm_train": lm_train_report["kernel_launches"]["ternary_conv2d"],
         "launches_dryrun": dryrun_report["kernel_launches"]["ternary_conv2d"],
+        "launches_spmd": spmd_report["kernel_launches"]["ternary_conv2d"],
         "launches_shard": k1_shard,
         "launches_shard_cover": f"{shard_report['ticks']} ticks of the pool in "
                                 f"{SHARD_BLOCKS} blocks",
@@ -2537,6 +2768,7 @@ def main() -> int:
         "launches_cover": "the quickstart path",
         "launches_lm_train": lm_train_report["kernel_launches"]["ternary_matmul"],
         "launches_dryrun": dryrun_report["kernel_launches"]["ternary_matmul"],
+        "launches_spmd": spmd_report["kernel_launches"]["ternary_matmul"],
         "times_cover": "one launch at the quickstart shape 64x2048x512, float32",
         "shapes": mm_rows,
     }]}
@@ -2547,6 +2779,7 @@ def main() -> int:
     print(json.dumps({"lm_train": lm_train_report}), flush=True)
     print(json.dumps({"dryrun": dryrun_report}), flush=True)
     print(json.dumps({"shard": shard_report}), flush=True)
+    print(json.dumps({"spmd": spmd_report}), flush=True)
     print(json.dumps(kernels), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -53,6 +53,7 @@ from typing import Callable, Dict, Iterable, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.kernels.ternary_conv2d import ternary_conv2d_cuda
 from repro_torch.tree import tree_leaves, tree_unflatten
@@ -170,6 +171,8 @@ class CapturedStep:
             out = self._run()
         current.wait_stream(side)
         for x in tree_leaves(out):
+            if isinstance(x, DTensor):
+                x = x.to_local()  # a DTensor's storage is its block's
             if isinstance(x, torch.Tensor) and x.device.type == "cuda":
                 x.record_stream(current)  # the caller reads it there
         return out

@@ -24,6 +24,11 @@ Layout (one directory per step):
 
 Restore checks the leaf count and each leaf's shape against the target
 state and places every tensor on the target leaf's device and dtype.
+
+In a process group (a train state of DTensors on a real mesh) every rank
+saves and restores: a save gathers each leaf whole, rank 0 writes the same
+files, and a barrier follows; a restore reads on every rank and lays each
+leaf out as its target.
 """
 from __future__ import annotations
 
@@ -36,13 +41,27 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, distribute_tensor
 
 from repro_torch.tree import tree_leaves, tree_unflatten
 
 
+def _rank() -> int:
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
+def _barrier() -> None:
+    if dist.is_initialized():
+        dist.barrier()
+
+
 def _to_numpy(leaf) -> Tuple[np.ndarray, str]:
     """A leaf as the array the npz stores, and the dtype name meta.json
-    records (numpy's names; bfloat16 as its uint16 bits)."""
+    records (numpy's names; bfloat16 as its uint16 bits).  A DTensor is
+    gathered whole first (a collective: every rank calls it)."""
+    if isinstance(leaf, DTensor):
+        leaf = leaf.full_tensor()
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach().cpu()
         if t.dtype == torch.bfloat16:
@@ -55,25 +74,36 @@ def _to_numpy(leaf) -> Tuple[np.ndarray, str]:
 
 def save_checkpoint(ckpt_dir, step: int, state, *, pipeline_cursor: Optional[Dict] = None,
                     keep: int = 3) -> Path:
+    """Commit ``state`` as step ``step``.  In a process group every rank
+    calls it: DTensor leaves are gathered whole, rank 0 writes, and every
+    rank returns after the commit (a barrier)."""
     ckpt_dir = Path(ckpt_dir)
+    final = ckpt_dir / f"step_{step:09d}"
+    leaves = tree_leaves(state)
+    arrs = {}
+    dtypes = {}
+    for i, leaf in enumerate(leaves):
+        arrs[f"leaf_{i:05d}"], dtypes[f"leaf_{i:05d}"] = _to_numpy(leaf)
+    if _rank() == 0:
+        _write(ckpt_dir, step, arrs, dtypes, len(leaves), pipeline_cursor, keep)
+    _barrier()
+    return final
+
+
+def _write(ckpt_dir: Path, step: int, arrs, dtypes, n_leaves: int,
+           pipeline_cursor: Optional[Dict], keep: int) -> None:
     ckpt_dir.mkdir(parents=True, exist_ok=True)
     final = ckpt_dir / f"step_{step:09d}"
     tmp = ckpt_dir / f".tmp_step_{step:09d}_{os.getpid()}"
     if tmp.exists():
         shutil.rmtree(tmp)
     tmp.mkdir()
-
-    leaves = tree_leaves(state)
-    arrs = {}
-    dtypes = {}
-    for i, leaf in enumerate(leaves):
-        arrs[f"leaf_{i:05d}"], dtypes[f"leaf_{i:05d}"] = _to_numpy(leaf)
     np.savez(tmp / "shard_00000.npz", **arrs)
     meta = {
         "step": step,
         "time": time.time(),
-        "n_leaves": len(leaves),
-        "treedef": f"repro_torch tree of {len(leaves)} leaves",
+        "n_leaves": n_leaves,
+        "treedef": f"repro_torch tree of {n_leaves} leaves",
         "dtypes": dtypes,
         "pipeline_cursor": pipeline_cursor or {},
     }
@@ -88,7 +118,6 @@ def save_checkpoint(ckpt_dir, step: int, state, *, pipeline_cursor: Optional[Dic
     os.rename(tmp, final)
     _update_latest(ckpt_dir, step)
     _gc(ckpt_dir, keep)
-    return final
 
 
 def _update_latest(ckpt_dir: Path, step: int):
@@ -141,6 +170,9 @@ def _to_tensor(arr: np.ndarray, dtype_name: Optional[str], like) -> torch.Tensor
         t = torch.from_numpy(flat.view(np.int16)).view(torch.bfloat16)
     else:
         t = torch.from_numpy(flat)
+    if isinstance(like, DTensor):
+        return distribute_tensor(t.to(device=like.device, dtype=like.dtype),
+                                 like.device_mesh, like.placements)
     if isinstance(like, torch.Tensor):
         return t.to(device=like.device, dtype=like.dtype)
     return t
@@ -148,8 +180,10 @@ def _to_tensor(arr: np.ndarray, dtype_name: Optional[str], like) -> torch.Tensor
 
 def restore_checkpoint(ckpt_dir, state_like, *, step: Optional[int] = None) -> Tuple[Any, Dict]:
     """Restore into the structure of ``state_like`` (a tree of tensors):
-    each leaf takes the target leaf's dtype and device.  Raises ValueError
-    when the leaf count or a leaf's shape differs from the target's."""
+    each leaf takes the target leaf's dtype and device — a DTensor target
+    its mesh and placements (every rank reads the file and keeps its
+    blocks).  Raises ValueError when the leaf count or a leaf's shape
+    differs from the target's."""
     d = _step_dir(Path(ckpt_dir), step)
     meta = json.loads((d / "meta.json").read_text())
     leaves_like = tree_leaves(state_like)

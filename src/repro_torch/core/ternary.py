@@ -20,7 +20,7 @@ input lies on.
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple, Union
+from typing import Callable, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -40,18 +40,34 @@ def _axes(axis: Axis) -> Optional[Tuple[int, ...]]:
 # ---------------------------------------------------------------------------
 
 def ternary_quantize_weights(
-    w: torch.Tensor, *, nu: float = TERNARY_NU_DEFAULT, axis: Axis = None
+    w: torch.Tensor, *, nu: float = TERNARY_NU_DEFAULT, axis: Axis = None,
+    total: Optional[Callable[[torch.Tensor], torch.Tensor]] = None, n_total: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """TWN quantizer.  Returns ``(t, alpha)`` with ``t`` in {-1,0,1} (int8)
     and ``alpha`` the positive per-group scale so that ``w ~= alpha * t``.
 
     ``axis``: axes to *reduce* over for the threshold/scale (None = whole
     tensor); reduced axes are kept with length 1, as in the reference.
+
+    ``total`` (with ``axis=None``): ``w`` is one block of a tensor of
+    ``n_total`` values split across devices, and ``total`` sums a tensor
+    over the blocks (an all-reduce).  The threshold and the scale are then
+    the whole tensor's — ``sum|w|`` and, past the threshold, the masked sum
+    and the count, each summed over the blocks — and ``t`` is this block's.
     """
     axes = _axes(axis)
     absw = w.abs()
     zero = torch.zeros((), dtype=w.dtype, device=w.device)
-    if axes is None:
+    if total is not None:
+        if axes is not None:
+            raise ValueError("a threshold over blocks is over the whole tensor (axis=None)")
+        delta = nu * (total(absw.sum()) / n_total)
+        mask = absw > delta
+        # float64 keeps a count of more than 2**24 values exact
+        sums = total(torch.stack([torch.where(mask, absw, zero).sum().to(torch.float64),
+                                  mask.sum().to(torch.float64)]))
+        num, den = sums[0].to(w.dtype), sums[1].clamp(min=1).to(w.dtype)
+    elif axes is None:
         delta = nu * absw.mean()
         mask = absw > delta
         num = torch.where(mask, absw, zero).sum()
@@ -80,13 +96,16 @@ def ternary_quantize_acts(x: torch.Tensor, *, threshold=0.5) -> torch.Tensor:
 
 class _STEWeights(torch.autograd.Function):
     """Forward ``alpha * ternary(w)``; backward passes ``g`` through inside
-    the ``|w| <= max(max|w|, 1e-6)`` band (clip-STE).  ``nu`` and ``axis``
-    take no gradient."""
+    the ``|w| <= max(max|w|, 1e-6)`` band (clip-STE).  ``nu``, ``axis`` and
+    the block reduction take no gradient.  The band holds every finite
+    value of ``w``, so a block's own max gives the whole tensor's
+    gradient."""
 
     @staticmethod
-    def forward(ctx, w, nu, axis):
+    def forward(ctx, w, nu, axis, total, n_total):
         ctx.save_for_backward(w)
-        t, alpha = ternary_quantize_weights(w, nu=nu, axis=axis)
+        t, alpha = ternary_quantize_weights(w, nu=nu, axis=axis, total=total,
+                                            n_total=n_total)
         return alpha * t.to(w.dtype)
 
     @staticmethod
@@ -94,15 +113,19 @@ class _STEWeights(torch.autograd.Function):
         (w,) = ctx.saved_tensors
         absw = w.abs()
         bound = torch.clamp(absw.max(), min=1e-6)
-        return torch.where(absw <= bound, g, torch.zeros_like(g)), None, None
+        return torch.where(absw <= bound, g, torch.zeros_like(g)), None, None, None, None
 
 
-def ste_ternary_weights(w: torch.Tensor, nu: float, axis: Axis = None) -> torch.Tensor:
+def ste_ternary_weights(w: torch.Tensor, nu: float, axis: Axis = None, *,
+                        total: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
+                        n_total: int = 0) -> torch.Tensor:
     """Weight fake-quant: ``alpha * ternary(w)`` on the grouping
     :func:`ternary_quantize_weights` uses (``axis=(0,1,2)`` on a conv weight
     is the per-OCU scale the silicon applies), with the reference's
-    clip-STE backward on ``w``."""
-    return _STEWeights.apply(w, nu, axis)
+    clip-STE backward on ``w``.  ``total`` and ``n_total``: ``w`` is one
+    device's block of a weight split across devices, quantized with the
+    whole weight's threshold and scale (see `ternary_quantize_weights`)."""
+    return _STEWeights.apply(w, nu, axis, total, n_total)
 
 
 class _STEActs(torch.autograd.Function):

@@ -65,7 +65,6 @@ from typing import Optional
 import torch
 from torch._subclasses.fake_tensor import FakeTensor
 from torch.distributed.tensor import DTensor
-from torch.distributed.tensor.experimental import implicit_replication
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.flop_counter import FlopCounterMode, flop_registry
 
@@ -83,6 +82,7 @@ from repro_torch.launch.steps import (
 )
 from repro_torch.models.config import SHAPES
 from repro_torch.models.model import cache_spec, init_cache, init_params
+from repro_torch.models.spmd import replicated_context
 from repro_torch.optim.adamw import AdamWConfig
 from repro_torch.tree import tree_leaves
 
@@ -329,7 +329,7 @@ def analyze_cell(cfg, shape, mesh, *, sharding_opts: Optional[dict] = None,
         step, args, shardings, donate, rules = build_cell(
             cfg, shape, mesh, force_accum=force_accum, sharding_opts=sharding_opts)
         dargs = args if mesh.device_mesh is None else distribute_meta(args, shardings)
-        with implicit_replication(), DeviceBook() as book:
+        with replicated_context(), DeviceBook() as book:
             outputs = step(*dargs)
         trace_s = time.perf_counter() - t0
         out_bytes = tree_bytes(outputs, output_shardings(cfg, shape, rules, outputs,

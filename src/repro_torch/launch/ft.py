@@ -27,7 +27,19 @@ import dataclasses
 import math
 from typing import Callable, Dict, Optional
 
+import torch.distributed as dist
+
 from repro_torch.ckpt.checkpoint import latest_step, restore_checkpoint, save_checkpoint
+from repro_torch.launch.mesh import rank
+
+
+def _from_rank0(value):
+    """``value`` as rank 0 holds it, on every rank of a process group."""
+    if not dist.is_initialized():
+        return value
+    box = [value]
+    dist.broadcast_object_list(box, src=0)
+    return box[0]
 
 
 @dataclasses.dataclass
@@ -90,7 +102,7 @@ def run_with_restarts(
     ckpt_every: int = 50,
     max_restarts: int = 3,
     fault_injector: Optional[Callable[[int], None]] = None,
-    log: Callable[[str], None] = print,
+    log: Optional[Callable[[str], None]] = None,
 ):
     """Supervised training loop: checkpoint/restart with exactly-once data.
 
@@ -98,15 +110,21 @@ def run_with_restarts(
     to verify the restart path end-to-end on one host).  A restore hands the
     step freshly restored tensors: a captured, donating step
     (`repro_torch.capture.CapturedStep`) copies them into the state it holds.
+    In a process group every rank runs the loop over its blocks of the
+    state: the step to start from is rank 0's reading of the checkpoint
+    directory, so every rank restarts at the same step, and ``log``
+    (default: print) speaks on rank 0 only.
     Returns (final_state, history dict).
     """
+    if log is None:
+        log = print if rank() == 0 else (lambda msg: None)
     restarts = 0
     history = {"losses": [], "restarts": 0, "resumed_from": []}
     guard = LossGuard()
     while True:
         try:
             step_fn = make_step()
-            start = latest_step(ckpt_dir)
+            start = _from_rank0(latest_step(ckpt_dir))
             if start is not None:
                 state, meta = restore_checkpoint(ckpt_dir, init_state())
                 data_pipeline.state.step = int(meta["pipeline_cursor"].get("step", 0))

@@ -56,9 +56,12 @@ the pool; on one card it resolves to one block, ``shard=False``).
 
 LM serving builds the reference's local mesh and sharding rules
 (`launch/mesh.py`, `launch/sharding.py`) and hands their shard function to
-the steps: the identity on one device.  On a host with several cards,
-``--device cuda`` names them all and the shard function raises
-(tensor-parallel execution is not ported); ``--device cuda:0`` serves on one.
+the steps: the identity on one device.  On a host with several cards
+``--device cuda`` names them all: the launcher starts one rank per card
+(NCCL, `launch.mesh.run_ranks`) and serves on the reference's ``(n, 1)``
+(data, model) mesh, the params and the cache laid out as DTensors by the
+plan, the prompts split over the cards; rank 0 prints.  Started by
+``torchrun`` (or inside a rank) it uses that group's ``(world, 1)`` mesh.
 
 ``--device`` defaults to ``cuda``; without a CUDA device that is an error,
 not a move to the CPU.  The default backend is "fused": conv + threshold
@@ -82,26 +85,49 @@ from repro_torch.device import resolve_device
 
 def serve_lm(args) -> int:
     """Batched prefill + greedy decode of ``--arch`` with random weights
-    (seed ``--seed``).  Returns 0, or 1 when any logits are not finite."""
+    (seed ``--seed``).  Returns 0, or 1 when any logits are not finite.
+    With ``--device cuda`` and several visible cards it runs one rank per
+    card (NCCL) on the reference's ``(n, 1)`` mesh; in a process group
+    that is already up (torchrun, a rank) on that group's ``(world, 1)``
+    mesh; otherwise on one device."""
+    from repro_torch.launch.mesh import in_group, launcher_ranks, run_ranks
+
+    device = resolve_device(args.device)
+    ranks = launcher_ranks(device)
+    if ranks > 1 and not in_group(device.type):
+        return max(run_ranks(_serve_lm, ranks, "cuda", args=(args,)))
+    return _serve_lm(args)
+
+
+def _serve_lm(args) -> int:
+    """`serve_lm` in one process: on one device, or as one rank of a
+    group (only rank 0 prints)."""
+    import torch.distributed as dist
+
     from repro_torch.capture import CapturedStep
     from repro_torch.configs import get_config
-    from repro_torch.launch.mesh import make_local_mesh
-    from repro_torch.launch.sharding import ShardingRules
+    from repro_torch.launch.mesh import local_device, make_local_mesh, rank, world_mesh
+    from repro_torch.launch.sharding import ShardingRules, distribute
     from repro_torch.launch.steps import make_decode_step, make_prefill_step
     from repro_torch.models.model import init_params
 
-    device = resolve_device(args.device)
+    device = local_device(resolve_device(args.device))
     cfg = get_config(args.arch, quant=args.quant, smoke=args.smoke)
-    shard = ShardingRules(make_local_mesh(device)).make_shard_fn()
+    mesh = world_mesh() if dist.is_initialized() else make_local_mesh(device)
+    rules = ShardingRules(mesh)
+    shard = rules.make_shard_fn()
     gen = torch.Generator(device=device).manual_seed(args.seed)
+    say = print if rank() == 0 else (lambda *a, **k: None)
 
     def sync():
         if device.type == "cuda":
             torch.cuda.synchronize(device)
 
     params = init_params(cfg, gen, dtype=torch.float32, device=device)
+    if mesh.device_mesh is not None:
+        params = distribute(params, rules.param_shardings(params))
     prefill = make_prefill_step(cfg, args.prompt_len + args.tokens, shard=shard,
-                                cache_dtype=torch.float32)
+                                cache_dtype=torch.float32, cache_init=rules.cache_init)
     decode = CapturedStep(make_decode_step(cfg, shard=shard, donate=True), device,
                           inputs=(1,))
     batch = {"tokens": torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
@@ -130,10 +156,10 @@ def serve_lm(args) -> int:
     sync()
     t_dec = time.perf_counter() - t0
     seqs = torch.cat(out_tokens, dim=1).cpu().numpy()
-    print(f"[serve] {cfg.name}: prefill({args.batch}x{args.prompt_len}) {t_pf*1e3:.0f} ms; "
-          f"{args.tokens-1} decode steps {t_dec*1e3:.0f} ms "
-          f"({t_dec/max(args.tokens-1,1)*1e3:.1f} ms/tok)")
-    print(f"[serve] sample tokens: {seqs[0, :8]}")
+    say(f"[serve] {cfg.name}: prefill({args.batch}x{args.prompt_len}) {t_pf*1e3:.0f} ms; "
+        f"{args.tokens-1} decode steps {t_dec*1e3:.0f} ms "
+        f"({t_dec/max(args.tokens-1,1)*1e3:.1f} ms/tok)")
+    say(f"[serve] sample tokens: {seqs[0, :8]}")
     if not bool(finite):
         print("[serve] FAIL: non-finite logits", file=sys.stderr)
         return 1

@@ -35,7 +35,7 @@ import math
 from typing import TYPE_CHECKING, Any, Dict, Optional, Tuple
 
 import torch
-from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard, distribute_tensor
 
 from repro_torch.tree import tree_leaves, tree_map_with_path, tree_unflatten
 
@@ -167,18 +167,19 @@ class ShardingRules:
         """The activation-constraint function the model steps take as
         ``shard``: ``shard(x, *logical_names)``.  As the reference's, it
         skips the constraint (returns ``x``) when any named dim does not
-        divide its axes' size.  On a planned mesh backed by a fake process
-        group it redistributes a DTensor ``x`` to ``spec(*names)``.  On one
-        real device or an unbacked planned mesh a constraint changes no
-        value, and it returns ``x``.  On a mesh of several real devices it
-        raises: tensor-parallel execution is not ported, and the steps never
-        compute unsharded where a plan asks for shards."""
+        divide its axes' size.  On a backed mesh — real ranks of a process
+        group (`launch.mesh.world_mesh`), or a planned mesh inside
+        `launch.mesh.fake_device_mesh` — it redistributes a DTensor ``x`` to
+        ``spec(*names)``.  On one real device or an unbacked planned mesh a
+        constraint changes no value, and it returns ``x``: no DTensor is
+        built.  On an unbacked mesh of several real devices it raises: the
+        steps never compute unsharded where a plan asks for shards."""
         mesh = self.mesh
-        if not mesh.abstract and mesh.size > 1:
+        if not mesh.abstract and mesh.size > 1 and mesh.device_mesh is None:
             raise NotImplementedError(
-                f"{mesh!r} has {mesh.size} devices: tensor-parallel execution of "
-                "the LM across devices is not ported; run on one device "
-                "(--device cuda:0, or CUDA_VISIBLE_DEVICES with one card)"
+                f"{mesh!r} has {mesh.size} devices and no process group: tensor-parallel "
+                "execution across devices runs on ranks, one per device "
+                "(`launch.mesh.run_ranks` and `world_mesh`, or torchrun)"
             )
         rules = self
 
@@ -325,6 +326,19 @@ class ShardingRules:
     def cache_shardings(self, cache_tree, cfg: ModelConfig):
         return self._shardings(cache_tree, self.cache_pspecs(cache_tree, cfg))
 
+    def cache_init(self, cfg: ModelConfig, batch: int, max_len: int, dtype, *, device=None):
+        """A zero cache laid out by `cache_shardings` on the backed mesh,
+        each device allocating only its blocks: the ``cache_init`` of
+        `launch.steps.make_prefill_step` on a mesh.  `models.model.init_cache`
+        where the mesh is unbacked (one device)."""
+        from repro_torch.models.model import cache_spec, init_cache
+
+        if self.mesh.device_mesh is None:
+            return init_cache(cfg, batch, max_len, dtype, device=device)
+        spec = cache_spec(cfg, batch, max_len, dtype)
+        return _from_blocks(spec, self.cache_shardings(spec, cfg),
+                            lambda shape, x: torch.zeros(shape, dtype=x.dtype, device=device))
+
     def _shardings(self, tree, specs):
         """A `Sharding` per leaf of ``tree`` from its spec tree."""
         return tree_unflatten(tree, [Sharding(self.mesh, s) for s in spec_leaves(specs)])
@@ -421,14 +435,37 @@ def einsum_placements(eq: str, a: DTensor, b: DTensor):
     return tuple(ap), tuple(bp), tuple(op)
 
 
+def _from_blocks(tree, shardings, block):
+    """``tree`` laid out on the backed mesh of ``shardings`` (a `Sharding`
+    per leaf) as DTensors whose local tensor is ``block(shape, leaf)``, one
+    device's block of the leaf."""
+    def one(x, s):
+        return DTensor.from_local(block(s.shard_shape(x.shape), x), s.mesh.device_mesh,
+                                  s.placements(), run_check=False, shape=x.shape,
+                                  stride=x.stride())
+
+    return tree_unflatten(tree, [one(x, s) for x, s in
+                                 zip(tree_leaves(tree), tree_leaves(shardings))])
+
+
 def distribute_meta(tree, shardings):
     """``tree`` (meta tensors at their global shapes) as meta DTensors on
     the backed mesh of ``shardings`` (a `Sharding` per leaf): each leaf's
     local tensor is one device's block."""
+    return _from_blocks(tree, shardings,
+                        lambda shape, x: torch.empty(shape, dtype=x.dtype, device="meta"))
+
+
+def distribute(tree, shardings):
+    """``tree`` (real tensors at their global shapes, the same values on
+    every rank: one seed-identical global tree) as DTensors on the backed
+    mesh of ``shardings`` (a `Sharding` per leaf), each rank keeping its
+    block (``distribute_tensor``); the counterpart of ``jax.device_put``
+    with ``NamedSharding``s.  A leaf on the CPU moves to the mesh's device
+    first."""
     def one(x, s):
-        local = torch.empty(s.shard_shape(x.shape), dtype=x.dtype, device="meta")
-        return DTensor.from_local(local, s.mesh.device_mesh, s.placements(),
-                                  run_check=False, shape=x.shape, stride=x.stride())
+        dm = s.mesh.device_mesh
+        return distribute_tensor(x.to(dm.device_type), dm, s.placements())
 
     return tree_unflatten(tree, [one(x, s) for x, s in
                                  zip(tree_leaves(tree), tree_leaves(shardings))])

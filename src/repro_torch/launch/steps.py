@@ -20,10 +20,12 @@ from __future__ import annotations
 from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, Replicate
 
 from repro_torch.models.config import ModelConfig, ShapeConfig
 from repro_torch.models.model import cache_spec, forward, init_cache, init_params, lm_loss
-from repro_torch.models.spmd import microbatch
+from repro_torch.models.spmd import microbatch, replicate, replicated_context, to_local
 from repro_torch.optim.adamw import (
     AdamWConfig,
     AdamWState,
@@ -71,26 +73,76 @@ def _batch_to(batch: Dict, device) -> Dict[str, torch.Tensor]:
     return {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
 
 
+def _mesh_of(tree):
+    """The device mesh of the first DTensor leaf of ``tree`` (None: plain)."""
+    return next((x.device_mesh for x in tree_leaves(tree) if isinstance(x, DTensor)), None)
+
+
+def place_batch(batch: Dict, mesh, shard=None) -> Dict:
+    """A batch of plain tensors (the same on every device) laid out beside
+    params on ``mesh``: each leaf replicated, then placed on the plan's
+    batch axes by ``shard`` (a local cut, no collective).  A DTensor leaf is
+    kept as it is; with ``mesh`` None the batch is returned unchanged."""
+    if mesh is None:
+        return batch
+
+    def one(v):
+        if isinstance(v, DTensor):
+            return v
+        v = DTensor.from_local(v, mesh, [Replicate()] * mesh.ndim, run_check=False)
+        return shard(v, "batch", *[None] * (v.ndim - 1)) if shard is not None else v
+
+    return {k: one(v) for k, v in batch.items()}
+
+
+def full(x) -> torch.Tensor:
+    """A step's output as a plain tensor, the same on every device: a
+    DTensor gathered whole; a plain tensor as it is."""
+    return to_local(replicate(x))
+
+
+def _logits_out(logits):
+    """The logits a serving step returns: whole on every device (`full`);
+    on a planned mesh's fake process group (`launch.mesh.fake_device_mesh`)
+    as the step left them, as the reference's out_shardings keep them in
+    the dry-run (no caller reads them there)."""
+    if isinstance(logits, DTensor) and dist.get_backend(
+            logits.device_mesh.get_group(0)) == "fake":
+        return logits
+    return full(logits)
+
+
 def value_and_grad(cfg: ModelConfig, params, batch: Dict, *, shard=None):
     """``((loss, metrics), grads)`` of `lm_loss` at ``params``: the
     reference's ``jax.value_and_grad(loss_fn, has_aux=True)``.  ``batch``
     holds tensors on the params' device.  Every grad is a tensor of its own
     (autograd may hand two inputs one tensor, or an expanded one), so a
     donating step may scale it in place; a non-float leaf gets a 0-d float32
-    zero."""
+    zero.  On DTensor params every grad is laid out as its param (a partial
+    sum over the batch shards is all-reduced, or reduce-scattered onto a
+    sharded param: the gradient of the whole batch's mean loss), and the
+    loss and metrics are plain full scalars."""
     req = [p.detach().requires_grad_() if p.is_floating_point() else p
            for p in tree_leaves(params)]
-    loss, metrics = lm_loss(
-        tree_unflatten(params, req), cfg, batch["tokens"], batch["targets"],
-        frontend_embeds=batch.get("frontend_embeds"), enc_embeds=batch.get("enc_embeds"),
-        shard=shard,
-    )
-    it = iter(torch.autograd.grad(loss, [x for x in req if x.requires_grad],
-                                  allow_unused=True, materialize_grads=True))
-    grads = [next(it) if x.requires_grad
-             else torch.zeros((), dtype=torch.float32, device=x.device) for x in req]
-    metrics = {k: v.detach() for k, v in metrics.items()}
-    return (loss.detach(), metrics), tree_unflatten(params, distinct_grads(grads))
+    with replicated_context():
+        loss, metrics = lm_loss(
+            tree_unflatten(params, req), cfg, batch["tokens"], batch["targets"],
+            frontend_embeds=batch.get("frontend_embeds"), enc_embeds=batch.get("enc_embeds"),
+            shard=shard,
+        )
+        it = iter(torch.autograd.grad(loss, [x for x in req if x.requires_grad],
+                                      allow_unused=True, materialize_grads=True))
+        grads = [_as_param(next(it), x) if x.requires_grad
+                 else torch.zeros((), dtype=torch.float32, device=x.device) for x in req]
+    metrics = {k: to_local(v.detach()) for k, v in metrics.items()}
+    return (to_local(loss.detach()), metrics), tree_unflatten(params, distinct_grads(grads))
+
+
+def _as_param(g, p):
+    """A gradient laid out as its DTensor param ``p`` (plain: as it is)."""
+    if isinstance(p, DTensor) and g.placements != p.placements:
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
 
 
 def make_train_step(
@@ -113,7 +165,7 @@ def make_train_step(
 
     def train_step(state: TrainState, batch) -> Tuple[TrainState, Dict]:
         device = tree_leaves(state.params)[0].device
-        batch = _batch_to(batch, device)
+        batch = place_batch(_batch_to(batch, device), _mesh_of(state.params), shard)
         if accum_steps > 1:
             acc = [torch.zeros_like(p, dtype=torch.float32) if p.is_floating_point()
                    else torch.zeros((), dtype=torch.float32, device=device)
@@ -134,7 +186,9 @@ def make_train_step(
         residuals = state.residuals
         if compress_grads:
             # ternary-compress before the DP all-reduce (16x wire reduction);
-            # error feedback keeps the optimizer trajectory unbiased.
+            # error feedback keeps the optimizer trajectory unbiased.  On
+            # DTensors the reduced gradients are compressed (the reference's
+            # numbers), each block with the whole leaf's scale.
             cg, residuals = compress_with_feedback(grads, residuals)
             grads = decompress(cg, grads)
 
@@ -156,22 +210,26 @@ def make_prefill_step(cfg: ModelConfig, max_len: int, *, shard=None,
                       cache_init: Optional[Callable] = None) -> Callable:
     """(params, batch) -> (last_logits [B,V], cache).  Builds the cache
     in-step, on the device of ``batch["tokens"]``: ``cache_init(cfg, batch,
-    max_len, dtype, device=...)`` (default `init_cache`; the dry-run's lays
-    it out by the sharding plan)."""
+    max_len, dtype, device=...)`` (default `init_cache`; on a mesh
+    `ShardingRules.cache_init` lays it out by the sharding plan).  On DTensor
+    params the batch may be plain (`place_batch` lays it out), and the
+    logits come back whole on every device."""
     max_len = prefill_cache_len(cfg, max_len)
     cache_init = cache_init or init_cache
 
     @torch.no_grad()
     def prefill_step(params, batch):
+        batch = place_batch(batch, _mesh_of(params), shard)
         tokens = batch["tokens"]
         cache0 = cache_init(cfg, tokens.shape[0], max_len, cache_dtype, device=tokens.device)
-        out = forward(
-            params, cfg, tokens, mode="prefill", cache=cache0, logits_mode="last",
-            frontend_embeds=batch.get("frontend_embeds"),
-            enc_embeds=batch.get("enc_embeds"),
-            shard=shard,
-        )
-        return out.logits[:, -1, :], out.cache
+        with replicated_context():
+            out = forward(
+                params, cfg, tokens, mode="prefill", cache=cache0, logits_mode="last",
+                frontend_embeds=batch.get("frontend_embeds"),
+                enc_embeds=batch.get("enc_embeds"),
+                shard=shard,
+            )
+            return _logits_out(out.logits[:, -1, :]), out.cache
 
     return prefill_step
 
@@ -181,14 +239,18 @@ def make_decode_step(cfg: ModelConfig, *, shard=None, donate: bool = False) -> C
     ``donate=False`` the given cache is left untouched and a new one is
     returned; ``donate=True`` is the counterpart of ``donate_argnums=(2,)``:
     every cache leaf, ``len`` included, is written in place and the returned
-    cache is the given one (bit-equal to ``donate=False``)."""
+    cache is the given one (bit-equal to ``donate=False``).  On DTensor
+    params and cache the tokens may be plain (the same on every device), and
+    the logits come back whole on every device."""
 
     @torch.no_grad()
     def decode_step(params, tokens, cache):
         if not donate:
             cache = tree_map(torch.clone, cache)
-        out = forward(params, cfg, tokens, mode="decode", cache=cache, shard=shard)
-        return out.logits[:, 0, :], out.cache
+        tokens = place_batch({"tokens": tokens}, _mesh_of(params), shard)["tokens"]
+        with replicated_context():
+            out = forward(params, cfg, tokens, mode="decode", cache=cache, shard=shard)
+            return _logits_out(out.logits[:, 0, :]), out.cache
 
     return decode_step
 

@@ -6,10 +6,14 @@ train step (`launch/steps.py` ``make_train_step(..., donate=True)``, the
 counterpart of the reference's ``jax.jit(step, donate_argnums=(0,))``) ->
 the supervised loop of `launch/ft.py` (atomic checkpoints, exactly-once
 data cursor, loss guard, restarts).  As in the reference, the step takes
-the shard function of ``ShardingRules(make_local_mesh(device))``: the
-identity on one device; on a host with several cards ``--device cuda``
-names them all and it raises (tensor-parallel execution is not ported),
-so pass ``--device cuda:0``.
+the shard function of ``ShardingRules`` over the local ``(n, 1)`` (data,
+model) mesh: the identity on one device.  On a host with several cards
+``--device cuda`` names them all: the launcher starts one rank per card
+(NCCL, `launch.mesh.run_ranks`), lays the train state out as DTensors by
+the plan (the FSDP shards of `ShardingRules.param_shardings`), splits each
+batch over the cards and reduces the gradients; rank 0 prints and writes
+the checkpoints.  Started by ``torchrun`` (or inside a rank) it uses that
+group's ``(world, 1)`` mesh.
 
 The paper's training loop — ternary QAT on `CutieProgram.forward_qat` —
 is `repro_torch.train`, driven by ``python -m repro_torch.launch.train``.
@@ -30,13 +34,22 @@ import time
 from pathlib import Path
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.data.pipeline import LMTokenPipeline
 from repro_torch.device import resolve_device
 from repro_torch.launch.ft import run_with_restarts
-from repro_torch.launch.mesh import make_local_mesh
-from repro_torch.launch.sharding import ShardingRules
+from repro_torch.launch.mesh import (
+    in_group,
+    launcher_ranks,
+    local_device,
+    make_local_mesh,
+    rank,
+    run_ranks,
+    world_mesh,
+)
+from repro_torch.launch.sharding import ShardingRules, distribute
 from repro_torch.launch.steps import make_train_state, make_train_step
 from repro_torch.optim.adamw import AdamWConfig
 
@@ -44,7 +57,8 @@ from repro_torch.optim.adamw import AdamWConfig
 def main(argv=None, *, fault_injector=None):
     """Run the launcher; returns ``(state, history)``.  ``fault_injector(step)``
     is handed to `run_with_restarts` (tests raise from it to simulate a
-    node failure)."""
+    node failure).  Where the launcher starts one rank per card, it
+    returns ``(None, rank 0's history)``."""
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", choices=ARCH_IDS, default="gemma-2b")
     ap.add_argument("--smoke", action="store_true", help="reduced config (CPU-sized)")
@@ -58,10 +72,24 @@ def main(argv=None, *, fault_injector=None):
     ap.add_argument("--ckpt-every", type=int, default=10)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
-                    help="torch device (default cuda; cpu runs the plain path)")
+                    help="torch device (default cuda: every visible card; cpu runs the "
+                         "plain path)")
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
+    ranks = launcher_ranks(device)
+    if ranks > 1 and not in_group(device.type):
+        return run_ranks(_spawned, ranks, "cuda", args=(args,))[0]
+    return _train(args, fault_injector)
+
+
+def _spawned(args):
+    """One card's rank of a launcher that started a rank per card."""
+    return None, _train(args)[1]
+
+
+def _train(args, fault_injector=None):
+    device = local_device(resolve_device(args.device))
     cfg = get_config(args.arch, quant=args.quant, smoke=args.smoke)
     opt_cfg = AdamWConfig(lr=args.lr, warmup_steps=5, total_steps=args.steps)
     pipe = LMTokenPipeline(
@@ -70,13 +98,17 @@ def main(argv=None, *, fault_injector=None):
         d_model=cfg.d_model,
         enc_seq=cfg.enc_seq_len if cfg.is_encdec else 0,
     )
-    shard = ShardingRules(make_local_mesh(device)).make_shard_fn()
-    step = make_train_step(cfg, opt_cfg, shard=shard, compress_grads=args.compress_grads,
-                           donate=True)
+    mesh = world_mesh() if dist.is_initialized() else make_local_mesh(device)
+    rules = ShardingRules(mesh)
+    step = make_train_step(cfg, opt_cfg, shard=rules.make_shard_fn(),
+                           compress_grads=args.compress_grads, donate=True)
 
     def init_state():
         gen = torch.Generator(device=device).manual_seed(args.seed)
-        return make_train_state(cfg, gen, compress=args.compress_grads, device=device)
+        state = make_train_state(cfg, gen, compress=args.compress_grads, device=device)
+        if mesh.device_mesh is not None:
+            state = distribute(state, rules.param_shardings(state))
+        return state
 
     t0 = time.time()
     state, hist = run_with_restarts(
@@ -86,10 +118,11 @@ def main(argv=None, *, fault_injector=None):
     )
     dt = time.time() - t0
     losses = hist["losses"]
-    print(f"[train] {cfg.name}: {len(losses)} steps in {dt:.1f}s "
-          f"({dt/max(len(losses),1)*1e3:.0f} ms/step)")
-    print(f"[train] loss {losses[0]:.4f} -> {losses[-1]:.4f} "
-          f"(restarts={hist['restarts']})")
+    if rank() == 0:
+        print(f"[train] {cfg.name}: {len(losses)} steps in {dt:.1f}s "
+              f"({dt/max(len(losses),1)*1e3:.0f} ms/step)")
+        print(f"[train] loss {losses[0]:.4f} -> {losses[-1]:.4f} "
+              f"(restarts={hist['restarts']})")
     if not losses[-1] < losses[0]:
         raise RuntimeError("training did not reduce loss")
     return state, hist

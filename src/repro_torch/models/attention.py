@@ -28,7 +28,14 @@ from repro_torch.models.layers import (
     meta,
     weak_scalar,
 )
-from repro_torch.models.spmd import batch_like, batch_split, is_dtensor, local_block, reshape
+from repro_torch.models.spmd import (
+    batch_like,
+    batch_split,
+    is_dtensor,
+    local_block,
+    reshape,
+    shard_index,
+)
 
 NEG_INF = -1e30
 
@@ -295,37 +302,56 @@ def gqa_forward(
     return out, new_cache
 
 
-def _cache_write_(cache, new, idx):
+def _cache_write_(cache, new, idx, first: int = 0):
     """Write one step at sequence position ``idx`` (a 0-d device tensor) of
     ``cache`` [B, S, ...] in place; ``new`` is [B, 1, ...].  The index stays
     on the device, so a captured step writes where the cache length says.
     Past the end (``idx >= S``) nothing changes, as the reference's masked
     select writes nothing there: the last position is written with itself.
-    On a DTensor cache each device writes its own block (of a sequence
-    sharded over the mesh, the block that holds position ``idx``)."""
+    ``cache`` may be a block of a longer cache that starts at position
+    ``first``: it is written only where it holds ``idx``.  On a DTensor
+    cache each device writes its own block (of a sequence sharded over the
+    mesh, only the block that holds position ``idx``, at ``idx`` less the
+    block's first position)."""
     if is_dtensor(cache):
-        pl = cache.placements
-        local_block(_cache_write_, (cache, new, idx),
+        pl, start = cache.placements, _block_start(cache)
+        local_block(lambda c, n, i: _cache_write_(c, n, i, start), (cache, new, idx),
                     (pl, batch_split(cache), (Replicate(),) * len(pl)), None)
         return
     s = cache.shape[1]
-    pos = torch.clamp(idx, max=s - 1).reshape(1).to(torch.long)
+    at = idx - first if first else idx
+    here = (at >= 0) & (at < s)
+    pos = torch.clamp(at, 0, s - 1).reshape(1).to(torch.long)
     keep = cache.index_select(1, pos)
-    cache.index_copy_(1, pos, torch.where(idx < s, new.to(cache.dtype), keep))
+    cache.index_copy_(1, pos, torch.where(here, new.to(cache.dtype), keep))
 
 
-def _cache_fill(cache, kv):
-    """Prefill: write kv[0:S] into the cache prefix.  On a DTensor cache,
-    laid out by the plan, each device fills its own block: the prefill
-    fills the whole cache there."""
+def _block_start(cache) -> int:
+    """The first sequence position of this device's block of a DTensor
+    cache [B, S, ...] (0 where the sequence is not split)."""
+    dims = [i for i, p in enumerate(cache.placements) if p == Shard(1)]
+    mesh = cache.device_mesh
+    return shard_index(mesh, dims) * (cache.shape[1] // math.prod(mesh.size(i) for i in dims))
+
+
+def _cache_fill(cache, kv, first: int = 0):
+    """Prefill: write kv[0:S] into the cache prefix.  ``cache`` may be a
+    block of a longer cache that starts at position ``first``: it takes the
+    positions of ``kv`` it holds.  On a DTensor cache, laid out by the plan,
+    each device fills its own block: the whole sequence of ``kv`` is
+    gathered over the mesh dims that shard the cache's, and each block
+    takes its positions (a ``kv`` as long as the cache is laid out as the
+    cache instead, each block filled with its own)."""
     if is_dtensor(cache):
-        if kv.shape[1] != cache.shape[1]:
-            raise NotImplementedError(
-                f"a DTensor cache of {cache.shape[1]} positions filled with {kv.shape[1]}")
         pl = cache.placements
-        return local_block(_cache_fill, (cache, kv), (pl, pl), pl)
+        if kv.shape[1] == cache.shape[1]:
+            return local_block(_cache_fill, (cache, kv), (pl, pl), pl)
+        start = _block_start(cache)
+        kp = tuple(Replicate() if p == Shard(1) else p for p in pl)
+        return local_block(lambda c, k: _cache_fill(c, k, start), (cache, kv), (pl, kp), pl)
     out = cache.clone()
-    out[:, : kv.shape[1]] = kv.to(cache.dtype)
+    part = kv[:, first:first + cache.shape[1]]
+    out[:, : part.shape[1]] = part.to(cache.dtype)
     return out
 
 

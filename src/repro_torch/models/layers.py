@@ -20,7 +20,7 @@ from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
-from torch.distributed.tensor import Partial, Shard
+from torch.distributed.tensor import Partial, Replicate, Shard
 
 from repro_torch.core.ternary import (
     pack_ternary,
@@ -35,7 +35,14 @@ from repro_torch.launch.sharding import (
     vector_beside,
     weights_beside,
 )
-from repro_torch.models.spmd import batch_split, is_dtensor, local_block, reshape
+from repro_torch.models.spmd import (
+    batch_split,
+    is_dtensor,
+    local_block,
+    reshape,
+    shard_index,
+    sum_over,
+)
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -128,16 +135,37 @@ def linear_init(gen, d_in: int, d_out: int, *, bias: bool = False, quant: str = 
 def linear(p, x: torch.Tensor, *, quant: str = "none", act_quant: str = "none") -> torch.Tensor:
     """y = act_q(x) @ W_q (+ b) under the configured quantization mode.  On
     DTensor params each device multiplies its blocks, laid out as Megatron's
-    linears (`launch/sharding.matmul_placements`, a `local_block`)."""
+    linears (`launch/sharding.matmul_placements`, a `local_block`): a
+    ternary weight takes the whole weight's threshold and scale, a packed
+    row-parallel block is unpacked on its own rows, and a row-parallel
+    bias is added once to the partial sums."""
     w = p.get("w", p.get("packed"))
     if is_dtensor(w):
         xp, wp, op = matmul_placements(x, w, 0, 1)
+        if "packed" in p and 4 * w.shape[0] != x.shape[-1]:
+            # the packed rows carry padding past d_in: a row block would not
+            # line up with the activation's, so the weight is gathered there
+            rows = [q == Shard(0) for q in wp]
+            xp, wp, op = (tuple(Replicate() if r else a for r, a in zip(rows, pl))
+                          for pl in (xp, wp, op))
         keys = list(p)
         pp = [wp if k in ("w", "packed") else vector_beside(wp, 1) for k in keys]
+        mesh = w.device_mesh
+        split = [i for i, q in enumerate(wp) if q.is_shard()]
+        total = (lambda t: sum_over(t, mesh, split)) if split else None
+        coord = mesh.get_coordinate()
+        bias_here = all(coord[i] == 0 for i, o in enumerate(op) if o.is_partial())
         return local_block(
-            lambda x, *leaves: linear(dict(zip(keys, leaves)), x, quant=quant,
-                                      act_quant=act_quant),
+            lambda x, *leaves: _linear(dict(zip(keys, leaves)), x, quant, act_quant,
+                                       total, w.numel(), bias_here),
             (x, *p.values()), (xp, *pp), op)
+    return _linear(p, x, quant, act_quant)
+
+
+def _linear(p, x, quant, act_quant, total=None, n_total: int = 0, bias: bool = True):
+    """`linear` on plain tensors.  On one device's blocks: ``total`` sums
+    over the blocks of a weight of ``n_total`` values (`ste_ternary_weights`),
+    and ``bias`` is False on the devices whose partial sums take no bias."""
     if act_quant == "ternary":
         x = ste_ternary_acts(x, 0.5)
     if quant == "ternary_packed":
@@ -146,12 +174,14 @@ def linear(p, x: torch.Tensor, *, quant: str = "none", act_quant: str = "none") 
         w = w[: x.shape[-1], :] if w.shape[0] != x.shape[-1] else w
         y = (x @ w) * p["scale"].to(x.dtype)
     elif quant == "ternary":
-        w = ste_ternary_weights(p["w"], 0.7).to(x.dtype)
+        w = ste_ternary_weights(p["w"], 0.7, total=total, n_total=n_total).to(x.dtype)
         y = x @ w
     else:
         y = x @ p["w"].to(x.dtype)
     if "b" in p:
-        y = y + p["b"].to(y.dtype)
+        # a device without the bias still adds it times zero: every device
+        # runs the same backward (the bias's gradient is a partial sum)
+        y = y + (p["b"] if bias else p["b"] * 0.0).to(y.dtype)
     return y
 
 
@@ -222,22 +252,34 @@ def embed_init(gen, vocab: int, d: int, dtype=torch.float32, device="cpu"):
 
 def embed_lookup(p, ids: torch.Tensor, *, scale: bool = False) -> torch.Tensor:
     """The rows of ``p["table"]`` at ``ids``.  On DTensors each device
-    looks its batch rows up in its vocabulary shard (zero rows for ids
-    outside it): the output is a partial sum over the axes that shard the
-    vocabulary, as an SPMD partitioner's masked gather
-    (`models/spmd.local_block`)."""
+    looks its batch rows up in its vocabulary shard — the ids shifted by the
+    shard's first row, zero rows for ids outside it — and the output is a
+    partial sum over the axes that shard the vocabulary, as an SPMD
+    partitioner's masked gather (`models/spmd.local_block`)."""
     table = p["table"]
     if is_dtensor(table):
         ip = batch_split(ids)
         tp = weights_beside(ip, table, 0)
         op = tuple(i if i.is_shard() else Partial() if t == Shard(0) else
                    Shard(2) if t == Shard(1) else t for i, t in zip(ip, tp))
-        x = local_block(F.embedding, (ids, table), (ip, tp), op)
+        dims = [i for i, t in enumerate(tp) if t == Shard(0)]
+        index = shard_index(table.device_mesh, dims)
+        x = local_block(lambda ids, t: _embed_rows(ids, t, index * t.shape[0]) if dims
+                        else F.embedding(ids, t), (ids, table), (ip, tp), op)
     else:
         x = F.embedding(ids, table)
     if scale:
         x = x * math.sqrt(x.shape[-1])
     return x
+
+
+def _embed_rows(ids: torch.Tensor, table: torch.Tensor, first: int) -> torch.Tensor:
+    """The rows ``ids - first`` of ``table`` (a block of a vocabulary that
+    starts at row ``first``); zero rows where an id falls outside it."""
+    local = ids - first
+    here = (local >= 0) & (local < table.shape[0])
+    x = F.embedding(torch.clamp(local, 0, table.shape[0] - 1), table)
+    return torch.where(here[..., None], x, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 def logits_from_embedding(p, x: torch.Tensor) -> torch.Tensor:

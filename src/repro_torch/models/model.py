@@ -75,6 +75,7 @@ from repro_torch.models.spmd import (
     batch_split,
     is_dtensor,
     local_block,
+    replicate,
     stack,
     unbind,
 )
@@ -509,7 +510,8 @@ def lm_loss(
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Next-token cross-entropy (+ MoE aux).  targets: [B, S] integer,
     already shifted by the data pipeline; -1 entries are masked.  Returns
-    (loss + AUX_LOSS_COEF * aux, {"loss", "aux", "ntok"})."""
+    (loss + AUX_LOSS_COEF * aux, {"loss", "aux", "ntok"}); on DTensors each
+    is replicated, a full scalar on every device."""
     out = forward(
         params, cfg, tokens, mode="train", logits_mode="hidden",
         frontend_embeds=frontend_embeds, enc_embeds=enc_embeds, shard=shard,
@@ -521,7 +523,9 @@ def lm_loss(
         head_w = ste_ternary_weights(head_w, 0.7)
     loss, ntok = chunked_ce_loss(out.logits, targets, head_w, softcap=cfg.logit_softcap)
     total = loss + AUX_LOSS_COEF * out.aux_loss
-    return total, {"loss": loss, "aux": out.aux_loss, "ntok": ntok}
+    # on DTensors: full scalars on every device
+    total, loss, aux, ntok = (replicate(v) for v in (total, loss, out.aux_loss, ntok))
+    return total, {"loss": loss, "aux": aux, "ntok": ntok}
 
 
 def _dense_w(p):

@@ -24,7 +24,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.launch.sharding import weights_beside
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import einsum, linear, linear_init, normal, silu
-from repro_torch.models.spmd import batch_split, is_dtensor, local_block
+from repro_torch.models.spmd import batch_split, is_dtensor, local_block, replicate
 from repro_torch.tree import tree_leaves, tree_map_with_path, tree_unflatten
 
 
@@ -117,15 +117,40 @@ def _moe_chunk(p, cfg: ModelConfig, x: torch.Tensor,
                for i in range(len(xp)))
     # the aux loss's factors from each device's rows: their mean over the
     # batch shards is the step's (an all-reduce each, as an SPMD partitioner
-    # reduces them), and the aux is their product's sum
-    mp = tuple(Partial("avg") if q.is_shard() else Replicate() for q in xp)
+    # reduces them), and the aux is their product's sum.  Each device hands
+    # on its share (its mean over the number of shards) as a partial sum: a
+    # partial mean would take the whole gradient of the mean on every device
+    # in the backward, the shards' count times too much.
+    # Over the mesh dims that split d_ff the router's logits are replicated
+    # and take their gradient as a partial sum; each device there computes
+    # the whole mean probability, so its share of that gradient is 1/k of it.
+    mp = tuple(Partial() if q.is_shard() else Replicate() for q in xp)
+    mesh = x.device_mesh
+    ways = math.prod(mesh.size(i) for i, q in enumerate(xp) if q.is_shard())
+    k = math.prod(mesh.size(i) for i, q in enumerate(xp)
+                  if not q.is_shard() and any(wp[i].is_shard() for wp in wps))
 
     def local(x, logits, *ws):
         y, _, me, ce = _moe_dispatch(tree_unflatten(experts, list(ws)), cfg, x, logits, shard)
-        return y, me, ce
+        if k > 1:
+            me = _ScaleGrad.apply(me, 1.0 / k)
+        return (y, me / ways, ce / ways) if ways > 1 else (y, me, ce)
 
     y, me, ce = local_block(local, (x, logits, *ws), (xp, xp, *wps), (yp, mp, mp))
-    return y, cfg.n_experts * torch.sum(me * ce)
+    return y, cfg.n_experts * torch.sum(replicate(me) * replicate(ce))
+
+
+class _ScaleGrad(torch.autograd.Function):
+    """The identity, whose backward scales the gradient by ``c``."""
+
+    @staticmethod
+    def forward(ctx, x, c):
+        ctx.c = c
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g * ctx.c, None
 
 
 def _tp_dim(path, w) -> int:

@@ -1,5 +1,7 @@
-"""The model code over DTensors: what the steps do when the dry-run lays
-their arguments out on a planned mesh (`launch/dryrun.py`).
+"""The model code over DTensors: what the steps do when their arguments
+are laid out on a mesh — real ranks of a process group
+(`launch.mesh.world_mesh`, gloo or NCCL) or the dry-run's planned mesh on a
+fake group (`launch/dryrun.py`).
 
 Most ops run on DTensors as they are, and DTensor's sharding propagation
 decides what each device computes and which collectives it issues.  A few
@@ -22,7 +24,7 @@ from typing import Callable, Optional, Sequence
 
 import torch
 from torch.distributed.tensor import DTensor, Partial, Placement, Replicate, Shard
-from torch.distributed.tensor.experimental import local_map
+from torch.distributed.tensor.experimental import implicit_replication, local_map
 
 
 def is_dtensor(x) -> bool:
@@ -32,16 +34,36 @@ def is_dtensor(x) -> bool:
 def batch_like(t: torch.Tensor, x) -> torch.Tensor:
     """``t`` [B, ...] (a plain tensor built in the step, the same on every
     device) laid out like the batch axis of ``x``: sharded over the mesh
-    dims that shard ``x``'s dim 0, replicated over the others.  ``t``
-    itself where ``x`` is plain."""
+    dims that shard ``x``'s dim 0 — each device keeps the rows of its
+    block — and replicated over the others.  ``t`` itself where ``x`` is
+    plain."""
     if not isinstance(x, DTensor):
         return t
     mesh = x.device_mesh
     placements = batch_split(x)
-    n = math.prod(mesh.size(i) for i, p in enumerate(placements) if p.is_shard())
-    local = t[: t.shape[0] // n].contiguous()
+    dims = [i for i, p in enumerate(placements) if p.is_shard()]
+    rows = t.shape[0] // math.prod(mesh.size(i) for i in dims)
+    first = shard_index(mesh, dims) * rows
+    local = t[first:first + rows].contiguous()
     return DTensor.from_local(local, mesh, placements, run_check=False,
                               shape=t.shape, stride=t.contiguous().stride())
+
+
+def replicate(x):
+    """A DTensor ``x`` gathered (or all-reduced) to a full copy on every
+    device; ``x`` itself where plain."""
+    if not isinstance(x, DTensor):
+        return x
+    return x.redistribute(x.device_mesh, [Replicate()] * x.device_mesh.ndim)
+
+
+def replicated_context():
+    """The context a step on DTensors runs in: a plain tensor that meets a
+    DTensor (a constant, a position table built in the step) is read as
+    replicated over the mesh (``implicit_replication``).  The dry-run and
+    the steps on a real mesh enter it; on plain tensors it changes
+    nothing."""
+    return implicit_replication()
 
 
 def local_block(fn: Callable, args: Sequence, in_placements: Sequence[Optional[tuple]],
@@ -196,11 +218,41 @@ def stack(xs) -> torch.Tensor:
                        tuple(Shard(p.dim + 1) if p.is_shard() else p for p in pl))
 
 
-def _all_reduce(t: torch.Tensor, op: str, group) -> torch.Tensor:
+def all_reduce(t: torch.Tensor, op: str, group) -> torch.Tensor:
+    """``t`` (a plain tensor) reduced by ``op`` over ``group``, a ``(mesh,
+    mesh dim)`` pair."""
     from torch.distributed import _functional_collectives as funcol
 
     out = funcol.all_reduce(t, op, group)
     return out.wait() if isinstance(out, funcol.AsyncCollectiveTensor) else out
+
+
+def to_local(x) -> torch.Tensor:
+    """This device's block of a DTensor ``x``; ``x`` itself where plain."""
+    return x.to_local() if isinstance(x, DTensor) else x
+
+
+def like(x, block: torch.Tensor):
+    """``block`` as a DTensor laid out as ``x`` (of ``x``'s global shape);
+    ``block`` itself where ``x`` is plain."""
+    if not isinstance(x, DTensor):
+        return block
+    return DTensor.from_local(block, x.device_mesh, x.placements, run_check=False,
+                              shape=x.shape, stride=x.stride())
+
+
+def shard_dims(x) -> tuple:
+    """The mesh dims that shard a DTensor ``x`` (none for a plain tensor)."""
+    if not isinstance(x, DTensor):
+        return ()
+    return tuple(i for i, p in enumerate(x.placements) if p.is_shard())
+
+
+def sum_over(t: torch.Tensor, mesh, dims: Sequence[int]) -> torch.Tensor:
+    """A plain ``t`` summed over the mesh dims ``dims`` (``t`` where none)."""
+    for d in dims:
+        t = all_reduce(t, "sum", (mesh, d))
+    return t
 
 
 class _AllReduceSum(torch.autograd.Function):
@@ -211,12 +263,22 @@ class _AllReduceSum(torch.autograd.Function):
     @staticmethod
     def forward(ctx, t, groups):
         for g in groups:
-            t = _all_reduce(t, "sum", g)
+            t = all_reduce(t, "sum", g)
         return t
 
     @staticmethod
     def backward(ctx, grad):
         return grad, None
+
+
+def shard_index(mesh, dims: Sequence[int]) -> int:
+    """This device's block of a tensor dim split over the mesh dims
+    ``dims`` (outer first), as DTensor numbers the blocks."""
+    coord = mesh.get_coordinate()
+    index = 0
+    for d in dims:
+        index = index * mesh.size(d) + coord[d]
+    return index
 
 
 class VocabShards:
@@ -227,12 +289,8 @@ class VocabShards:
 
     def __init__(self, mesh, dims: Sequence[int], local: int):
         self.groups = [(mesh, d) for d in dims]
-        coord = mesh.get_coordinate()
-        index = 0
-        for d in dims:
-            index = index * mesh.size(d) + coord[d]
         self.local = local
-        self.offset = index * local
+        self.offset = shard_index(mesh, dims) * local
 
     def logz_gold(self, logits: torch.Tensor, tgt: torch.Tensor):
         """(logsumexp over the whole vocabulary, the logit at ``tgt``) from
@@ -241,7 +299,7 @@ class VocabShards:
         all-reduced over the shards."""
         m = logits.amax(dim=-1).detach()
         for g in self.groups:
-            m = _all_reduce(m, "max", g)
+            m = all_reduce(m, "max", g)
         total = _AllReduceSum.apply(torch.exp(logits - m[..., None]).sum(dim=-1), self.groups)
         t = tgt - self.offset
         here = (t >= 0) & (t < self.local)

@@ -11,6 +11,9 @@ Plain functions over the params tree (dicts, lists and tensors), not
     weight decay only on leaves with ``ndim >= 2``, at a linear-warmup then
     cosine learning rate that decays to ``min_lr_frac * lr``.
 
+On DTensors (a train state laid out by `launch/sharding.py`) every leaf's
+update runs on each device's block; only the clipping norm crosses devices.
+
 Every function returns new tensors and leaves its inputs untouched, so a
 train state can be checkpointed or compared at any step — except
 ``adamw_update(..., donate=True)``, the counterpart of a jitted step that
@@ -27,7 +30,9 @@ import math
 from typing import Any, List, NamedTuple, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
+from repro_torch.models.spmd import like, shard_dims, sum_over, to_local
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 
@@ -62,18 +67,32 @@ def lr_schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
 
 
 def global_norm(tree) -> torch.Tensor:
-    leaves = [torch.sum(torch.square(x.to(torch.float32))) for x in tree_leaves(tree)]
-    return torch.sqrt(torch.sum(torch.stack(leaves)))
+    """The norm of every leaf of ``tree`` together.  Of DTensor leaves each
+    device squares and sums its blocks, and the sums of leaves sharded over
+    the same mesh dims are all-reduced over them once: the norm of the
+    whole (global) tree, a plain tensor, the same on every device."""
+    leaves = tree_leaves(tree)
+    sq = [torch.sum(torch.square(to_local(x).to(torch.float32))) for x in leaves]
+    groups: dict = {}
+    for x, s in zip(leaves, sq):
+        groups.setdefault(shard_dims(x), []).append(s)
+    if list(groups) == [()]:
+        return torch.sqrt(torch.sum(torch.stack(sq)))
+    mesh = next(x.device_mesh for x in leaves if shard_dims(x))
+    total = sum(sum_over(torch.sum(torch.stack(ss)), mesh, dims)
+                for dims, ss in groups.items())
+    return torch.sqrt(total)
 
 
 def clip_by_global_norm(grads, max_norm: float, *, donate: bool = False):
     """``(grads scaled to a global norm <= max_norm, the norm)``; with
-    ``donate`` the grads are scaled in place."""
+    ``donate`` the grads are scaled in place.  DTensor grads are scaled
+    block by block."""
     gn = global_norm(grads)
     scale = torch.clamp(max_norm / torch.clamp(gn, min=1e-9), max=1.0)
     if donate:
-        return tree_map(lambda g: g.mul_(scale), grads), gn
-    return tree_map(lambda g: (g * scale).to(g.dtype), grads), gn
+        return tree_map(lambda g: like(g, to_local(g).mul_(scale)), grads), gn
+    return tree_map(lambda g: like(g, (to_local(g) * scale).to(g.dtype)), grads), gn
 
 
 def distinct_grads(grads: List[torch.Tensor]) -> List[torch.Tensor]:
@@ -82,9 +101,11 @@ def distinct_grads(grads: List[torch.Tensor]) -> List[torch.Tensor]:
     scales each gradient in place."""
     seen, out = set(), []
     for g in grads:
-        if g.untyped_storage().data_ptr() in seen or not g.is_contiguous():
-            g = g.clone(memory_format=torch.contiguous_format)
-        seen.add(g.untyped_storage().data_ptr())
+        block = to_local(g)
+        if block.untyped_storage().data_ptr() in seen or not block.is_contiguous():
+            g = like(g, block.clone(memory_format=torch.contiguous_format))
+            block = to_local(g)
+        seen.add(block.untyped_storage().data_ptr())
         out.append(g)
     return out
 
@@ -112,31 +133,41 @@ def adamw_update(
     """One AdamW step: ``(new params, new state, {"lr", "grad_norm"})``.
     With ``donate`` the grads, params, m, v and the step counter are
     overwritten and the returned trees hold the same tensors (bit-equal to
-    ``donate=False``), so a captured step finds its state where it left it."""
+    ``donate=False``), so a captured step finds its state where it left it.
+    On DTensors (params, grads, m and v laid out alike) each device updates
+    its own blocks; the clipping norm is the global one."""
     grads, gn = clip_by_global_norm(grads, cfg.grad_clip, donate=donate)
-    step = state.step.add_(1) if donate else state.step + 1
-    lr = lr_schedule(cfg, step)
-    b1c = 1 - cfg.b1 ** step.to(torch.float32)
-    b2c = 1 - cfg.b2 ** step.to(torch.float32)
+    step_block = to_local(state.step)
+    step_block = step_block.add_(1) if donate else step_block + 1
+    step = state.step if donate else like(state.step, step_block)
+    lr = lr_schedule(cfg, step_block)
+    b1c = 1 - cfg.b1 ** step_block.to(torch.float32)
+    b2c = 1 - cfg.b2 ** step_block.to(torch.float32)
 
     def upd(p, g, m, v):
         if not p.is_floating_point():
             return p, m, v  # frozen (packed) weights
-        gf = g.to(torch.float32)
+        if isinstance(p, DTensor) and (g.placements != p.placements
+                                       or m.placements != p.placements):
+            raise ValueError(f"a parameter placed {p.placements} with its gradient "
+                             f"placed {g.placements} and moments {m.placements}")
+        pb, mb, vb = to_local(p), to_local(m), to_local(v)
+        gf = to_local(g).to(torch.float32)
         if donate:
-            m_new = m.mul_(cfg.b1).add_((1 - cfg.b1) * gf)
-            v_new = v.mul_(cfg.b2).add_((1 - cfg.b2) * gf * gf)
+            m_new = mb.mul_(cfg.b1).add_((1 - cfg.b1) * gf)
+            v_new = vb.mul_(cfg.b2).add_((1 - cfg.b2) * gf * gf)
         else:
-            m_new = cfg.b1 * m + (1 - cfg.b1) * gf
-            v_new = cfg.b2 * v + (1 - cfg.b2) * gf * gf
+            m_new = cfg.b1 * mb + (1 - cfg.b1) * gf
+            v_new = cfg.b2 * vb + (1 - cfg.b2) * gf * gf
         upd_ = (m_new / b1c) / (torch.sqrt(v_new / b2c) + cfg.eps)
         # decoupled weight decay on matrices only (ndim >= 2)
         wd = cfg.weight_decay if p.ndim >= 2 else 0.0
-        pf = p.to(torch.float32)
+        pf = pb.to(torch.float32)
         p_new = pf - lr * (upd_ + wd * pf)
         if donate:
-            return p.copy_(p_new), m_new, v_new
-        return p_new.to(p.dtype), m_new, v_new
+            pb.copy_(p_new)
+            return p, m, v
+        return like(p, p_new.to(p.dtype)), like(m, m_new), like(v, v_new)
 
     out = [upd(*xs) for xs in zip(*(tree_leaves(t) for t in (params, grads, state.m, state.v)))]
     new_p, new_m, new_v = (tree_unflatten(params, [o[i] for o in out]) for i in range(3))

@@ -20,6 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.ternary import pack_ternary, unpack_ternary
+from repro_torch.models.spmd import like, shard_dims, sum_over, to_local
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 
@@ -33,16 +34,29 @@ def _is_compressed(x) -> bool:
     return isinstance(x, CompressedGrad)
 
 
-def _compress_leaf(g: torch.Tensor, residual: torch.Tensor) -> Tuple[CompressedGrad, torch.Tensor]:
+def _compress_leaf(g: torch.Tensor, residual: torch.Tensor, total=None,
+                   n_total: int = 0) -> Tuple[CompressedGrad, torch.Tensor]:
+    """One leaf's trits, scale and new residual.  With ``total`` (a sum
+    over the other blocks of a leaf split across devices) ``g`` and
+    ``residual`` are this device's blocks of a leaf of ``n_total`` values:
+    the scale and alpha are the whole leaf's, the trits and the residual
+    this block's."""
     gf = g.to(torch.float32) + residual
     flat = gf.reshape(-1)
     n = flat.shape[0]
-    scale = torch.mean(torch.abs(flat)) + 1e-12
+    if total is None:
+        scale = torch.mean(torch.abs(flat)) + 1e-12
+    else:
+        scale = total(torch.sum(torch.abs(flat))) / n_total + 1e-12
     # deterministic ternarization at threshold = scale/2
     t = torch.where(torch.abs(flat) > 0.5 * scale, torch.sign(flat), 0.0)
     # alpha = <g, t> / <t, t>  (least-squares optimal scale for this support)
-    tt = torch.clamp(torch.sum(t * t), min=1.0)
-    alpha = torch.sum(flat * t) / tt
+    if total is None:
+        tt = torch.clamp(torch.sum(t * t), min=1.0)
+        alpha = torch.sum(flat * t) / tt
+    else:
+        sums = total(torch.stack([torch.sum(t * t), torch.sum(flat * t)]))
+        alpha = sums[1] / torch.clamp(sums[0], min=1.0)
     new_residual = (gf - (alpha * t).reshape(gf.shape)).to(residual.dtype)
     tp = F.pad(t.to(torch.int8), (0, (-n) % 4))
     return CompressedGrad(pack_ternary(tp, axis=0), alpha.to(torch.float32), n), new_residual
@@ -65,24 +79,30 @@ def init_residuals(params) -> Any:
 
 def compress_with_feedback(grads, residuals):
     """Returns (compressed tree, new residuals).  Non-float and 0-d leaves
-    pass through untouched."""
+    pass through untouched.  A DTensor leaf is compressed block by block
+    with the whole leaf's scale and alpha (each sum all-reduced over the
+    mesh dims that split it), its residual kept per block: the numbers of
+    the leaf compressed whole."""
     comp, new_r = [], []
     for g, r in zip(tree_leaves(grads), tree_leaves(residuals)):
         if not g.is_floating_point() or g.ndim == 0:
             comp.append(g)
             new_r.append(r)
             continue
-        c, nr = _compress_leaf(g, r)
+        dims = shard_dims(g)
+        total = (None if not dims
+                 else lambda t, g=g, dims=dims: sum_over(t, g.device_mesh, dims))
+        c, nr = _compress_leaf(to_local(g), to_local(r), total, g.numel())
         comp.append(c)
-        new_r.append(nr)
+        new_r.append(like(r, nr))
     return tree_unflatten(grads, comp), tree_unflatten(residuals, new_r)
 
 
 def decompress(compressed, grads_like):
     """The dense gradients ``compressed`` stands for, in ``grads_like``'s
-    shapes and dtypes."""
+    shapes, dtypes and (for DTensors) placements."""
     out = [
-        _decompress_leaf(c, g.shape, g.dtype) if _is_compressed(c) else c
+        like(g, _decompress_leaf(c, to_local(g).shape, g.dtype)) if _is_compressed(c) else c
         for c, g in zip(tree_leaves(compressed, _is_compressed), tree_leaves(grads_like))
     ]
     return tree_unflatten(grads_like, out)
