@@ -324,19 +324,32 @@ PEAK_F32_FLOPS = 67e12     # float32 outside the tensor cores (the SSD scan's ei
 
 # the LM training path: the served config at full published width under the
 # paper's ternary STE, batch 1 x 4096 tokens (the causal flash route, so its
-# backward runs), three donating steps; one float32 step of each SMOKE config
-# on the card and on the CPU, as the CPU tests compare them (loss, aux and
-# grad norm within 1e-5 / 1e-4, the first moment m = 0.1 * clipped grads
-# within rtol 1e-3, atol 1e-5); the launcher at full width on the SSM config:
-# (arch, steps, resumed steps, checkpoint every)
+# backward runs): three donating steps eagerly, again eagerly from the same
+# seed, then through the launcher's `CapturedStep` (captured == eager bit for
+# bit, or, where eager does not repeat its own bits, within the CPU tests'
+# tolerances: the loss rel 1e-5, params rtol 1e-3, atol 1e-5), then steps of
+# each on the captured step's held state in turns; one float32 step of each
+# SMOKE config on the card and on the CPU, as the CPU tests compare them
+# (loss, aux and grad norm within 1e-5 / 1e-4, the first moment m = 0.1 *
+# clipped grads within rtol 1e-3, atol 1e-5), and LM_TRAIN_SMOKE_STEPS of
+# each captured == eager bit for bit; the launcher at full width on the SSM
+# config: (arch, steps, resumed steps, checkpoint every); at SMOKE size, an
+# injected fault (at step LM_TRAIN_FAULT[0] of LM_TRAIN_FAULT[1]); and its
+# full-width step at the launcher's 8 x 64 timed captured against eager in turns
 LM_TRAIN_ARCH = "gemma-2b"
 LM_TRAIN_SEQ = 4096
 LM_TRAIN_STEPS = 3
+LM_TRAIN_ROUNDS = 2        # rounds of captured, eager, eager, captured: one step each
 LM_TRAIN_OPT = {"lr": 1e-4, "warmup_steps": 2, "total_steps": 10}
+LM_TRAIN_TOL = {"loss_rtol": 1e-5, "rtol": 1e-3, "atol": 1e-5}
 LM_TRAIN_SMOKE_SHAPE = (4, 16)   # batch, seq
+LM_TRAIN_SMOKE_STEPS = 4
 LM_TRAIN_SMOKE_OPT = {"lr": 1e-3, "warmup_steps": 2, "total_steps": 10}
 LM_TRAIN_SMOKE_TOL = {"metrics": 1e-5, "grad_norm": 1e-4, "m_rtol": 1e-3, "m_atol": 1e-5}
 LM_TRAIN_LAUNCH = ("mamba2-370m", 20, 30, 10)
+LM_TRAIN_FAULT = (7, 12, 5)      # fault at step, steps, checkpoint every
+LM_TRAIN_LAUNCH_SHAPE = (8, 64)  # the launcher's default batch, seq
+LM_TRAIN_LAUNCH_WINDOW = 5       # steps per timed window
 
 # the dry-run: full-width cells on the (16, 16) production mesh (dense train
 # and decode, an MoE model's MLA cache, an SSM's cache sequence over every
@@ -2041,13 +2054,40 @@ def _lm_train_bound(cfg, state, batch: int, seq: int):
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
 
 
+def _checksums(tree) -> list:
+    """Per leaf of ``tree`` (a DTensor: this device's block), the sum and the
+    sum of squares of its 32-bit words (bytes for other widths) in wrapping
+    int64: leaves of equal bits give equal sums, whatever the order of the
+    reduction."""
+    from repro_torch.models.spmd import to_local
+    from repro_torch.tree import tree_leaves
+
+    sums = []
+    for x in tree_leaves(tree):
+        flat = to_local(x).detach().reshape(-1)
+        flat = flat.view(torch.int32) if flat.element_size() == 4 else flat.view(torch.uint8)
+        acc = torch.zeros(2, dtype=torch.int64, device=flat.device)
+        for c in flat.split(1 << 26):
+            c = c.to(torch.int64)
+            acc += torch.stack([c.sum(), (c * c).sum()])
+        sums.append(acc)
+    return torch.stack(sums).cpu().tolist()
+
+
 def _lm_train_full_width(dev):
-    """LM_TRAIN_STEPS donating steps of full-width ``gemma-2b`` under
-    ``quant="ternary"`` on batch 1 x LM_TRAIN_SEQ tokens of `LMTokenPipeline`:
-    host ms per step, the last step's device ms and kernels
-    (`torch.profiler`), busy share, peak memory, the bound.  Gates: finite
-    losses, a finite grad norm (so every grad is finite), every param leaf
-    moved."""
+    """Full-width ``gemma-2b`` under ``quant="ternary"`` on batch 1 x
+    LM_TRAIN_SEQ tokens of `LMTokenPipeline`, the launcher's donating step:
+    LM_TRAIN_STEPS steps eagerly, again eagerly from the same seed, then
+    through `CapturedStep` (the launcher's wrapping: one eager warm-up, one
+    capture, replays).  Captured == eager: losses, grad norms and every
+    state leaf (checksums) bit for bit where eager repeats its own bits,
+    else at LM_TRAIN_TOL.  Then, on the captured step's held state, host ms
+    per step captured and eager in turns (a numpy batch in, the loss read,
+    as `run_with_restarts` runs it), a `torch.profiler` step of each (device
+    ms, kernels, busy share), each run's peak allocated and reserved bytes,
+    the capture's seconds and the bound.  Gates: finite losses and grad
+    norms, every param leaf moved, one capture."""
+    from repro_torch.capture import CapturedStep
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import LMTokenPipeline
     from repro_torch.launch.steps import make_train_state, make_train_step
@@ -2055,53 +2095,174 @@ def _lm_train_full_width(dev):
     from repro_torch.tree import tree_leaves
 
     cfg = get_config(LM_TRAIN_ARCH, quant="ternary")
-    torch.zeros((), device=dev)
-    torch.cuda.synchronize(dev)
-    torch.cuda.reset_peak_memory_stats(dev)
-    state = make_train_state(cfg, torch.Generator(device=dev).manual_seed(SEED), device=dev)
-    bound = _lm_train_bound(cfg, state, 1, LM_TRAIN_SEQ)
-    state_bytes = _tree_bytes(state)
-    before = [leaf.reshape(-1)[:4096].clone() for leaf in tree_leaves(state.params)]
     pipe = LMTokenPipeline(cfg.vocab_size, LM_TRAIN_SEQ, 1, seed=SEED)
-    step = make_train_step(cfg, AdamWConfig(**LM_TRAIN_OPT), donate=True)
-    host_ms, losses, grad_norms, profiled = [], [], [], None
-    out = {}
-    for i in range(LM_TRAIN_STEPS):
-        batch = pipe.next_batch()
-        if i == LM_TRAIN_STEPS - 1:   # the last step under the profiler
-            def run(batch=batch):
-                out["step"] = step(state, batch)
-            profiled = _profile_kernels(run, top=15)
-            state, metrics = out.pop("step")
-        else:
+    batches = [pipe.next_batch() for _ in range(LM_TRAIN_STEPS + 4 * LM_TRAIN_ROUNDS + 2)]
+    opt = AdamWConfig(**LM_TRAIN_OPT)
+
+    def run(kind):
+        """LM_TRAIN_STEPS steps from the seed's state; (state, step, record)."""
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        state = make_train_state(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                                 device=dev)
+        if not before:
+            before.extend(leaf.reshape(-1)[:4096].cpu() for leaf in tree_leaves(state.params))
+        step = make_train_step(cfg, opt, donate=True)
+        if kind == "captured":
+            step = CapturedStep(step, dev, inputs=(1,))
+        rec = {"losses": [], "grad_norms": [], "host_ms": []}
+        for b in batches[:LM_TRAIN_STEPS]:
             torch.cuda.synchronize(dev)
             t0 = time.perf_counter()
-            state, metrics = step(state, batch)
+            state, m = step(state, b)
+            rec["losses"].append(float(m["loss"]))
             torch.cuda.synchronize(dev)
-            host_ms.append((time.perf_counter() - t0) * 1e3)
-        losses.append(float(metrics["loss"]))
-        grad_norms.append(float(metrics["grad_norm"]))
-    if not all(np.isfinite(losses)):
-        fail(f"lm_train {cfg.name}: non-finite loss {losses}")
-    if not all(np.isfinite(grad_norms)):
-        fail(f"lm_train {cfg.name}: non-finite gradient (grad norms {grad_norms})")
-    still = [i for i, (a, b) in enumerate(zip(before, tree_leaves(state.params)))
-             if torch.equal(a, b.reshape(-1)[:4096])]
-    if still:
-        fail(f"lm_train {cfg.name}: param leaves {still} did not move in {LM_TRAIN_STEPS} steps")
-    kernels, device_ms, top = profiled
-    peak = torch.cuda.max_memory_allocated(dev)
-    del state, before, out
+            rec["host_ms"].append((time.perf_counter() - t0) * 1e3)
+            rec["grad_norms"].append(float(m["grad_norm"]))
+        rec["peak_allocated_bytes"] = torch.cuda.max_memory_allocated(dev)
+        rec["peak_reserved_bytes"] = torch.cuda.max_memory_reserved(dev)
+        rec["checksums"] = _checksums(state)
+        return state, step, rec
+
+    torch.zeros((), device=dev)
+    probe = make_train_state(cfg, None, device="meta")
+    bound = _lm_train_bound(cfg, probe, 1, LM_TRAIN_SEQ)
+    state_bytes = _tree_bytes(probe)
+    del probe
+    before, eager = [], {}
+    for name in ("eager", "eager_again"):
+        state, _, eager[name] = run("eager")
+        if name == "eager":
+            ref_params = [x.detach().cpu() for x in tree_leaves(state.params)]
+            still = [i for i, (a, b) in enumerate(zip(before, ref_params))
+                     if torch.equal(a, b.reshape(-1)[:4096])]
+            if still:
+                fail(f"lm_train {cfg.name}: param leaves {still} did not move in "
+                     f"{LM_TRAIN_STEPS} steps")
+        del state
+    e, e2 = eager["eager"], eager["eager_again"]
+    for rec in (e, e2):
+        if not all(np.isfinite(rec["losses"])) or not all(np.isfinite(rec["grad_norms"])):
+            fail(f"lm_train {cfg.name}: non-finite loss {rec['losses']} or grad norm "
+                 f"{rec['grad_norms']}")
+    repeats = (e["losses"] == e2["losses"] and e["grad_norms"] == e2["grad_norms"]
+               and e["checksums"] == e2["checksums"])
+
+    state, step, c = run("captured")
+    if step.builds != 1 or not step.captured:
+        fail(f"lm_train {cfg.name}: the step was built {step.builds} times (captured: "
+             f"{step.captured})")
+    bit_equal = (c["losses"] == e["losses"] and c["grad_norms"] == e["grad_norms"]
+                 and c["checksums"] == e["checksums"])
+    if repeats and not bit_equal:
+        diff = [i for i, (a, b) in enumerate(zip(c["checksums"], e["checksums"])) if a != b]
+        fail(f"lm_train {cfg.name}: captured != eager (eager repeats its bits): losses "
+             f"{c['losses']} vs {e['losses']}, grad norms {c['grad_norms']} vs "
+             f"{e['grad_norms']}, state leaves {diff[:10]} of {len(c['checksums'])} differ")
+    param_err = 0.0 if bit_equal else max(
+        float((a.to(dev) - b).abs().max()) for a, b in zip(ref_params, tree_leaves(state.params)))
+    if not repeats:
+        tol = LM_TRAIN_TOL
+        for a, b in zip(ref_params, tree_leaves(state.params)):
+            if not torch.allclose(b, a.to(dev), rtol=tol["rtol"], atol=tol["atol"]):
+                fail(f"lm_train {cfg.name}: captured params differ from eager beyond "
+                     f"{tol}: max|diff| {param_err:.3e}")
+        if any(abs(x - y) > tol["loss_rtol"] * abs(y) for x, y in zip(c["losses"],
+                                                                       e["losses"])):
+            fail(f"lm_train {cfg.name}: captured losses {c['losses']} vs eager {e['losses']}")
+    del ref_params
+
+    # host ms per step on the one held state, in turns (the loss read each step)
+    raw = make_train_step(cfg, opt, donate=True)
+    fns = {"captured": step, "eager": raw}
+    host = {"captured": [], "eager": []}
+    it = iter(batches[LM_TRAIN_STEPS:])
+    for _ in range(LM_TRAIN_ROUNDS):
+        for kind in ("captured", "eager", "eager", "captured"):
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            state, m = fns[kind](state, next(it))
+            float(m["loss"])
+            torch.cuda.synchronize(dev)
+            host[kind].append((time.perf_counter() - t0) * 1e3)
+    prof = {}
+    for kind in ("captured", "eager"):
+        box = {}
+
+        def one(kind=kind, b=next(it)):
+            box["out"] = fns[kind](state, b)
+            float(box["out"][1]["loss"])
+
+        n, dev_ms, top = _profile_kernels(one, top=10)
+        state = box.pop("out")[0]
+        med = float(np.median(host[kind]))
+        prof[kind] = {"host_ms_per_step": host[kind], "host_ms_per_step_median": med,
+                      "device_kernels_per_step": n, "device_ms_per_step": dev_ms,
+                      "busy_share": dev_ms / med if n else None, "top_kernels_ms": top}
+    reserved_after = torch.cuda.memory_reserved(dev)
+    capture_s = step.capture_s
+    del state, step, raw, fns
+    torch.cuda.synchronize(dev)
     torch.cuda.empty_cache()
     return {
         "arch": cfg.name, "quant": cfg.quant, "dtype": cfg.dtype, "n_params": cfg.n_params(),
         "batch": 1, "seq": LM_TRAIN_SEQ, "steps": LM_TRAIN_STEPS, "donate": True,
-        "state_bytes": state_bytes, "losses": losses, "grad_norms": grad_norms,
-        "host_ms_per_step": host_ms, "device_kernels_per_step": kernels,
-        "device_ms_per_step": device_ms, "top_kernels_ms": top,
-        "busy_share": device_ms / host_ms[-1] if device_ms else None,
-        "peak_memory_bytes": peak, "bound": bound,
+        "state_bytes": state_bytes, "eager_repeats_bits": repeats,
+        "captured_bit_equal": bit_equal, "tol_if_not_repeatable": LM_TRAIN_TOL,
+        "param_max_abs_err": param_err, "builds": 1, "capture_s": capture_s,
+        "first_call_host_ms": c["host_ms"][0],
+        "losses": e["losses"], "grad_norms": e["grad_norms"],
+        "runs": {k: {kk: v for kk, v in r.items() if kk != "checksums"}
+                 for k, r in (("eager", e), ("eager_again", e2), ("captured", c))},
+        "in_turns": prof, "reserved_after_turns_bytes": reserved_after, "bound": bound,
     }
+
+
+def _lm_train_smoke_captured_vs_eager(arch, dev, accum=1, compress=False):
+    """LM_TRAIN_SMOKE_STEPS float32 steps of a SMOKE config through the
+    launcher's `CapturedStep` and through the same donating step eagerly,
+    from one state: every metric and state leaf bit for bit, one capture,
+    no leaf moved."""
+    from repro_torch.capture import CapturedStep
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import LMTokenPipeline
+    from repro_torch.launch.steps import make_train_state, make_train_step
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.tree import tree_leaves, tree_map
+
+    cfg = get_config(arch, smoke=True)
+    a = make_train_state(cfg, torch.Generator(device=dev).manual_seed(SEED), compress=compress,
+                         device=dev)
+    b = tree_map(torch.clone, a)
+    kw = dict(compress_grads=compress, accum_steps=accum, donate=True)
+    eager = make_train_step(cfg, AdamWConfig(**LM_TRAIN_SMOKE_OPT), **kw)
+    step = CapturedStep(make_train_step(cfg, AdamWConfig(**LM_TRAIN_SMOKE_OPT), **kw), dev,
+                        inputs=(1,))
+    bs, s = LM_TRAIN_SMOKE_SHAPE
+    pipe = LMTokenPipeline(
+        cfg.vocab_size, s, bs, seed=SEED,
+        frontend_seq=cfg.frontend_seq if cfg.frontend == "vision" else 0, d_model=cfg.d_model,
+        enc_seq=cfg.enc_seq_len if cfg.is_encdec else 0)
+    ptrs = [x.data_ptr() for x in tree_leaves(b)]
+    what = f"lm_train {arch} smoke (accum {accum}, compress {compress})"
+    for i in range(LM_TRAIN_SMOKE_STEPS):
+        batch = pipe.next_batch()
+        a, ma = eager(a, batch)
+        b, mb = step(b, batch)
+        for k in ma:
+            if not torch.equal(ma[k], mb[k]):
+                fail(f"{what}: captured step {i} {k} {float(mb[k])!r} != eager "
+                     f"{float(ma[k])!r}")
+    if step.builds != 1 or not step.captured:
+        fail(f"{what}: built {step.builds} times (captured: {step.captured})")
+    if [x.data_ptr() for x in tree_leaves(b)] != ptrs:
+        fail(f"{what}: a state leaf moved")
+    for i, (x, y) in enumerate(zip(tree_leaves(a), tree_leaves(b))):
+        if not torch.equal(x, y):
+            fail(f"{what}: state leaf {i} {tuple(x.shape)} captured != eager")
+    return {"steps": LM_TRAIN_SMOKE_STEPS, "bit_equal": True, "builds": step.builds,
+            "capture_s": step.capture_s}
 
 
 def _lm_train_smoke_card_vs_cpu(arch, dev, accum=1, compress=False):
@@ -2189,12 +2350,95 @@ def _lm_train_launcher(env):
     return {"checkpoint_bytes": need // 3, "runs": runs}
 
 
+def _lm_train_launcher_restart(dev):
+    """`train_lm.main` in this process on the SSM config at SMOKE size (the
+    full width runs twice in `_lm_train_launcher`; a full-width state's
+    checkpoints would take most of a minute here) with a fault injected at
+    LM_TRAIN_FAULT[0]: one capture across the restart (``step_builds``),
+    one resume."""
+    from repro_torch.launch import train_lm
+
+    arch, _, _, _ = LM_TRAIN_LAUNCH
+    at, steps, every = LM_TRAIN_FAULT
+    ckpt = REPO / "build" / "lm_train_fault_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    crashed = []
+
+    def injector(i):
+        if i == at and not crashed:
+            crashed.append(i)
+            raise RuntimeError("simulated node failure")
+
+    try:
+        t0 = time.perf_counter()
+        state, hist = train_lm.main(
+            ["--arch", arch, "--smoke", "--steps", str(steps), "--ckpt-every", str(every),
+             "--ckpt-dir", str(ckpt), "--device", "cuda"], fault_injector=injector)
+        wall = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    resumed = (at // every) * every
+    if crashed != [at] or hist["restarts"] != 1 or hist["resumed_from"] != [resumed]:
+        fail(f"lm_train: the launcher's fault at step {at} gave restarts "
+             f"{hist['restarts']}, resumed from {hist['resumed_from']}")
+    if hist["step_builds"] != 1:
+        fail(f"lm_train: the launcher built its step {hist['step_builds']} times across a "
+             f"restart")
+    del state
+    torch.cuda.empty_cache()
+    return {"arch": arch, "smoke": True, "steps": steps, "fault_at": at, "resumed_from": resumed,
+            "restarts": 1, "step_builds": 1, "wall_s": wall, "losses": hist["losses"]}
+
+
+def _lm_train_launcher_step(dev):
+    """The launcher's step on the SSM config at full width and the launcher's
+    batch x seq: host ms per step captured (the launcher's `CapturedStep`)
+    and eager (the same donating step), LM_TRAIN_LAUNCH_WINDOW steps a
+    window in turns on the one held state, the loss read each step."""
+    from repro_torch.capture import CapturedStep
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import LMTokenPipeline
+    from repro_torch.launch.steps import make_train_state, make_train_step
+    from repro_torch.optim.adamw import AdamWConfig
+
+    arch = LM_TRAIN_LAUNCH[0]
+    bs, seq = LM_TRAIN_LAUNCH_SHAPE
+    cfg = get_config(arch)
+    opt = AdamWConfig(lr=1e-3, warmup_steps=5, total_steps=100)
+    state = make_train_state(cfg, torch.Generator(device=dev).manual_seed(SEED), device=dev)
+    raw = make_train_step(cfg, opt, donate=True)
+    fns = {"captured": CapturedStep(raw, dev, inputs=(1,)), "eager": raw}
+    pipe = LMTokenPipeline(cfg.vocab_size, seq, bs, seed=SEED)
+    state, _ = fns["captured"](state, pipe.next_batch())   # warm-up and capture
+
+    host = {"captured": [], "eager": []}
+    for _ in range(LM_TRAIN_ROUNDS):
+        for kind in ("captured", "eager", "eager", "captured"):
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            for _ in range(LM_TRAIN_LAUNCH_WINDOW):
+                state, m = fns[kind](state, pipe.next_batch())
+                float(m["loss"])
+            torch.cuda.synchronize(dev)
+            host[kind].append((time.perf_counter() - t0) * 1e3 / LM_TRAIN_LAUNCH_WINDOW)
+    if not np.isfinite(float(m["loss"])):
+        fail(f"lm_train: {arch} launcher step: non-finite loss")
+    capture_s = fns["captured"].capture_s
+    del state, fns, raw
+    torch.cuda.empty_cache()
+    return {"arch": arch, "batch": bs, "seq": seq, "capture_s": capture_s,
+            "host_ms_per_step": host,
+            "host_ms_per_step_median": {k: float(np.median(v)) for k, v in host.items()}}
+
+
 def lm_train_path(dev):
     """Phase 9: LM training.  Full-width ``gemma-2b`` under the ternary STE
-    at 1 x 4096 tokens; the ten SMOKE configs (and ``gemma-2b`` with
-    ``accum_steps=2`` and with ``compress_grads``) card == CPU; the launcher
-    at full width with a resume.  No kernel of its own: K1 and K2 must
-    launch 0 times."""
+    at 1 x 4096 tokens, eager twice and through the launcher's captured
+    step; the ten SMOKE configs (and ``gemma-2b`` with ``accum_steps=2`` and
+    with ``compress_grads``) card == CPU and captured == eager; the launcher
+    at full width (captured) with a resume and with an injected fault, and
+    its step timed captured against eager.  No kernel of its own: K1 and K2
+    must launch 0 times."""
     from repro_torch.configs import ARCH_IDS
     from repro_torch.kernels.ternary_conv2d import ternary_conv2d_cuda
     from repro_torch.kernels.ternary_matmul import ternary_matmul_cuda
@@ -2204,14 +2448,27 @@ def lm_train_path(dev):
     ternary_matmul_cuda.launches = 0
     out = {"full_width": _lm_train_full_width(dev)}
     fw, bd = out["full_width"], out["full_width"]["bound"]
+    runs, turns = fw["runs"], fw["in_turns"]
+    gib = 2 ** 30
     print(f"[chip_smoke] lm_train: {fw['arch']} ternary ({fw['n_params'] / 1e9:.2f} B params, "
-          f"state {fw['state_bytes'] / 1e9:.2f} GB) 1x{LM_TRAIN_SEQ}: losses "
-          f"{', '.join(f'{x:.4f}' for x in fw['losses'])}; host ms/step "
-          f"{', '.join(f'{x:.1f}' for x in fw['host_ms_per_step'])}; last step "
-          f"{fw['device_ms_per_step'] or float('nan'):.1f} device ms over "
-          f"{fw['device_kernels_per_step']} "
-          f"kernels (bound {bd['bound_ms']:.2f} ms, {bd['bound_by']}); peak "
-          f"{fw['peak_memory_bytes'] / 2**30:.2f} GiB", flush=True)
+          f"state {fw['state_bytes'] / 1e9:.2f} GB) 1x{LM_TRAIN_SEQ}, {LM_TRAIN_STEPS} steps: "
+          f"losses {', '.join(f'{x:.6f}' for x in fw['losses'])}; eager repeats its bits: "
+          f"{fw['eager_repeats_bits']}; captured == eager bit for bit: "
+          f"{fw['captured_bit_equal']} (params max|diff| {fw['param_max_abs_err']:.3e}); "
+          f"1 capture in {fw['capture_s']:.2f} s, first call {fw['first_call_host_ms']:.1f} "
+          f"host ms", flush=True)
+    for kind in ("captured", "eager"):
+        t = turns[kind]
+        dms = t["device_ms_per_step"]
+        print(f"[chip_smoke] lm_train: {kind} host ms/step "
+              f"{' '.join(f'{x:.1f}' for x in t['host_ms_per_step'])} (median "
+              f"{t['host_ms_per_step_median']:.1f}, in turns); "
+              f"{dms if dms is None else round(dms, 1)} device ms over "
+              f"{t['device_kernels_per_step']} kernels, busy "
+              f"{t['busy_share'] if t['busy_share'] is None else round(t['busy_share'], 3)}; "
+              f"peak allocated {runs[kind]['peak_allocated_bytes'] / gib:.2f} GiB, reserved "
+              f"{runs[kind]['peak_reserved_bytes'] / gib:.2f} GiB (bound {bd['bound_ms']:.2f} "
+              f"ms, {bd['bound_by']})", flush=True)
 
     smoke = {arch: _lm_train_smoke_card_vs_cpu(arch, dev) for arch in ARCH_IDS}
     smoke[f"{LM_TRAIN_ARCH} accum_steps=2"] = _lm_train_smoke_card_vs_cpu(LM_TRAIN_ARCH, dev,
@@ -2222,10 +2479,31 @@ def lm_train_path(dev):
     print(f"[chip_smoke] lm_train: {len(smoke)} SMOKE train steps on the card == the CPU "
           f"(metrics max|diff| {max(e['metrics'] for e in smoke.values()):.2e}, first moment "
           f"{max(e['m'] for e in smoke.values()):.2e})", flush=True)
+    cap = {arch: _lm_train_smoke_captured_vs_eager(arch, dev) for arch in ARCH_IDS}
+    cap[f"{LM_TRAIN_ARCH} accum_steps=2"] = _lm_train_smoke_captured_vs_eager(
+        LM_TRAIN_ARCH, dev, accum=2)
+    cap[f"{LM_TRAIN_ARCH} compress_grads"] = _lm_train_smoke_captured_vs_eager(
+        LM_TRAIN_ARCH, dev, compress=True)
+    out["smoke_captured_vs_eager"] = cap
+    print(f"[chip_smoke] lm_train: {len(cap)} SMOKE configs captured == eager bit for bit "
+          f"over {LM_TRAIN_SMOKE_STEPS} steps, 1 capture each (capture s "
+          f"{min(c['capture_s'] for c in cap.values()):.3f}-"
+          f"{max(c['capture_s'] for c in cap.values()):.3f})", flush=True)
 
     env = {**os.environ, "PYTHONPATH": os.pathsep.join(
         [str(REPO / "src")] + [p for p in [os.environ.get("PYTHONPATH")] if p])}
     out["launcher"] = _lm_train_launcher(env)
+    out["launcher_fault"] = _lm_train_launcher_restart(dev)
+    lf = out["launcher_fault"]
+    print(f"[chip_smoke] lm_train: train_lm.main --arch {lf['arch']} --smoke --steps {lf['steps']} "
+          f"with a fault at step {lf['fault_at']}: resumed from {lf['resumed_from']}, "
+          f"step_builds 1, {lf['wall_s']:.1f} s", flush=True)
+    out["launcher_step"] = _lm_train_launcher_step(dev)
+    ls = out["launcher_step"]
+    print(f"[chip_smoke] lm_train: {ls['arch']} launcher step {ls['batch']}x{ls['seq']}: host "
+          f"ms/step captured {' '.join(f'{x:.2f}' for x in ls['host_ms_per_step']['captured'])}"
+          f", eager {' '.join(f'{x:.2f}' for x in ls['host_ms_per_step']['eager'])} (windows "
+          f"of {LM_TRAIN_LAUNCH_WINDOW} in turns); capture {ls['capture_s']:.2f} s", flush=True)
 
     launches = {"ternary_conv2d": ternary_conv2d_cuda.launches,
                 "ternary_matmul": ternary_matmul_cuda.launches}
@@ -2565,10 +2843,17 @@ def _spmd_serve(rules, dev):
 
 
 def _spmd_train(rules, dev):
-    """One full-width SPMD_ARCH ``quant="ternary"`` donating train step at
-    1 x LM_TRAIN_SEQ tokens, plain then on DTensors from the same seed:
-    the loss and every param at SPMD_TRAIN_TOL, each step's peak memory
-    and host ms (a first call: it includes the step's warm-up)."""
+    """Full-width SPMD_ARCH ``quant="ternary"`` donating train steps at
+    1 x LM_TRAIN_SEQ tokens from the same seed: one plain step, then two on
+    DTensors eagerly and two on DTensors through the launcher's
+    `CapturedStep` (a warm-up and capture, then a replay).  The first
+    DTensor step against the plain one at SPMD_TRAIN_TOL (the loss and
+    every param); the captured DTensor steps against the eager ones bit for
+    bit (losses, grad norms, every state leaf's checksum), one capture.
+    Each run's peak memory and host ms per step (the first a first call:
+    it includes the step's warm-up, and for the captured step its
+    capture)."""
+    from repro_torch.capture import CapturedStep
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import LMTokenPipeline
     from repro_torch.launch.sharding import distribute
@@ -2577,46 +2862,69 @@ def _spmd_train(rules, dev):
     from repro_torch.tree import tree_leaves
 
     cfg = get_config(SPMD_ARCH, quant="ternary")
-    batch = LMTokenPipeline(cfg.vocab_size, LM_TRAIN_SEQ, 1, seed=SEED).next_batch()
+    pipe = LMTokenPipeline(cfg.vocab_size, LM_TRAIN_SEQ, 1, seed=SEED)
+    batches = [pipe.next_batch() for _ in range(2)]
     out, plain_params = {}, None
-    for kind in ("plain", "dtensor"):
+    for kind in ("plain", "dtensor", "dtensor_captured"):
         torch.cuda.synchronize(dev)
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(dev)
         state = make_train_state(cfg, torch.Generator(device=dev).manual_seed(SEED),
                                  device=dev)
         kw = {}
-        if kind == "dtensor":
+        if kind != "plain":
             state = distribute(state, rules.param_shardings(state))
             kw["shard"] = rules.make_shard_fn()
         step = make_train_step(cfg, AdamWConfig(**LM_TRAIN_OPT), donate=True, **kw)
-        torch.cuda.synchronize(dev)
-        t0 = time.perf_counter()
-        state, metrics = step(state, batch)
-        torch.cuda.synchronize(dev)
-        ms = (time.perf_counter() - t0) * 1e3
-        out[kind] = {"loss": float(metrics["loss"]), "grad_norm": float(metrics["grad_norm"]),
-                     "host_ms_first_step": ms,
-                     "peak_memory_bytes": torch.cuda.max_memory_allocated(dev)}
-        if kind == "plain":
-            plain_params = [x.detach().to("cpu") for x in tree_leaves(state.params)]
-        else:
-            errs = []
-            for a, b in zip(plain_params, tree_leaves(state.params)):
-                a, b = a.to(dev), b.to_local()
-                errs.append(float((a - b).abs().max()) if a.is_floating_point() else 0.0)
-                if not torch.allclose(b, a, rtol=SPMD_TRAIN_TOL["rtol"],
-                                      atol=SPMD_TRAIN_TOL["atol"]):
-                    fail(f"spmd: a param after the DTensor train step differs from the "
-                         f"plain step's: max|diff| {errs[-1]:.3e}")
-            out["param_max_abs_err"] = max(errs)
+        if kind == "dtensor_captured":
+            step = CapturedStep(step, dev, inputs=(1,))
+        rec = {"losses": [], "grad_norms": [], "host_ms": []}
+        for i, batch in enumerate(batches[:1] if kind == "plain" else batches):
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch)
+            torch.cuda.synchronize(dev)
+            rec["host_ms"].append((time.perf_counter() - t0) * 1e3)
+            rec["losses"].append(float(metrics["loss"]))
+            rec["grad_norms"].append(float(metrics["grad_norm"]))
+            if kind == "plain":
+                plain_params = [x.detach().to("cpu") for x in tree_leaves(state.params)]
+            elif kind == "dtensor" and i == 0:
+                errs = []
+                for a, b in zip(plain_params, tree_leaves(state.params)):
+                    a, b = a.to(dev), b.to_local()
+                    errs.append(float((a - b).abs().max()) if a.is_floating_point() else 0.0)
+                    if not torch.allclose(b, a, rtol=SPMD_TRAIN_TOL["rtol"],
+                                          atol=SPMD_TRAIN_TOL["atol"]):
+                        fail(f"spmd: a param after the DTensor train step differs from the "
+                             f"plain step's: max|diff| {errs[-1]:.3e}")
+                out["param_max_abs_err"] = max(errs)
+                del plain_params
+        out[kind] = {"loss": rec["losses"][0], "grad_norm": rec["grad_norms"][0],
+                     "losses": rec["losses"], "grad_norms": rec["grad_norms"],
+                     "host_ms_first_step": rec["host_ms"][0], "host_ms_per_step": rec["host_ms"],
+                     "peak_memory_bytes": torch.cuda.max_memory_allocated(dev),
+                     "peak_reserved_bytes": torch.cuda.max_memory_reserved(dev)}
+        if kind != "plain":
+            out[kind]["checksums"] = _checksums(state)
+        if kind == "dtensor_captured":
+            if step.builds != 1 or not step.captured:
+                fail(f"spmd: the DTensor train step was built {step.builds} times (captured: "
+                     f"{step.captured})")
+            out[kind]["capture_s"] = step.capture_s
         del state, metrics, step
-    p, d = out["plain"], out["dtensor"]
+    p, d, c = out["plain"], out["dtensor"], out["dtensor_captured"]
     if abs(d["loss"] - p["loss"]) > SPMD_TRAIN_TOL["loss_rtol"] * abs(p["loss"]):
         fail(f"spmd: the DTensor train step's loss {d['loss']} != the plain {p['loss']}")
+    if (c["losses"], c["grad_norms"]) != (d["losses"], d["grad_norms"]):
+        fail(f"spmd: the captured DTensor train step's losses {c['losses']} / grad norms "
+             f"{c['grad_norms']} != the eager DTensor step's {d['losses']} / {d['grad_norms']}")
+    if c.pop("checksums") != d.pop("checksums"):
+        fail("spmd: after two steps the captured DTensor train state differs from the eager "
+             "DTensor step's")
     torch.cuda.empty_cache()
     return {"arch": cfg.name, "quant": cfg.quant, "batch": 1, "seq": LM_TRAIN_SEQ,
-            "tol": SPMD_TRAIN_TOL, **out}
+            "tol": SPMD_TRAIN_TOL, "captured_bit_equal": True, "captured_builds": 1, **out}
 
 
 def spmd_path(dev):
@@ -2667,6 +2975,7 @@ def spmd_path(dev):
           f" (median {hm['plain']:.3f}), dtensor "
           f"{' '.join(f'{x:.3f}' for x in serve['host_ms_per_token']['dtensor'])} "
           f"(median {hm['dtensor']:.3f})", flush=True)
+    tc = train["dtensor_captured"]
     print(f"[chip_smoke] spmd: {train['arch']} ternary 1x{train['seq']} train step: loss "
           f"plain {train['plain']['loss']:.6f} dtensor {train['dtensor']['loss']:.6f}, "
           f"params max|diff| {train['param_max_abs_err']:.3e}; peak "
@@ -2674,6 +2983,13 @@ def spmd_path(dev):
           f"{train['dtensor']['peak_memory_bytes'] / 1e9:.2f} GB dtensor; "
           f"K1 {launches['ternary_conv2d']}, K2 {launches['ternary_matmul']} launches",
           flush=True)
+    print(f"[chip_smoke] spmd: the DTensor train step captured == eager bit for bit over 2 "
+          f"steps (losses {' '.join(f'{x:.6f}' for x in tc['losses'])}), 1 capture in "
+          f"{tc['capture_s']:.2f} s; host ms/step captured "
+          f"{' '.join(f'{x:.1f}' for x in tc['host_ms_per_step'])}, eager "
+          f"{' '.join(f'{x:.1f}' for x in train['dtensor']['host_ms_per_step'])}; peak "
+          f"allocated {tc['peak_memory_bytes'] / 1e9:.2f} GB, reserved "
+          f"{tc['peak_reserved_bytes'] / 1e9:.2f} GB", flush=True)
     return {"backend": backend, "world_size": world, "mesh": [1, 1], "serve": serve,
             "train": train, "kernel_launches": launches,
             "phase_s": time.perf_counter() - t_phase}

@@ -22,6 +22,7 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
 
+from repro_torch.capture import CapturedStep  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core.ternary import sparsity, ternary_quantize_weights  # noqa: E402
 from repro_torch.data.pipeline import LMTokenPipeline  # noqa: E402
@@ -53,7 +54,10 @@ def main(argv=None) -> int:
 
     pipe = LMTokenPipeline(cfg.vocab_size, args.seq, args.batch, seed=0)
     opt = AdamWConfig(lr=3e-3, warmup_steps=10, total_steps=args.steps)
-    step = make_train_step(cfg, opt, compress_grads=args.compress_grads, donate=True)
+    # the reference's jax.jit(step, donate_argnums=(0,)): on the card one
+    # eager step, then a CUDA graph replayed over the state it writes in place
+    step = CapturedStep(make_train_step(cfg, opt, compress_grads=args.compress_grads,
+                                        donate=True), device, inputs=(1,))
     state = make_train_state(cfg, torch.Generator(device=device).manual_seed(0),
                              compress=args.compress_grads, device=device)
 

@@ -49,6 +49,7 @@ another graph is such a call.
 from __future__ import annotations
 
 import gc
+import time
 from typing import Callable, Dict, Iterable, List, Optional, Tuple, Union
 
 import numpy as np
@@ -67,7 +68,10 @@ class CapturedStep:
     """``fn(*args)`` run eagerly once, then replayed from a CUDA graph.
 
     ``builds`` is the reference's trace count: 0 before the first call,
-    then 1 — the capture on the card, the first eager run elsewhere."""
+    then 1 — the capture on the card, the first eager run elsewhere.
+    ``capture_s`` is the host seconds the capture took (`torch.cuda.graph`
+    synchronising and emptying the allocator's cache, recording, and
+    instantiating the graph), None until then."""
 
     def __init__(self, fn: Callable, device: Union[str, torch.device],
                  capture: bool = True, *, inputs: Iterable[int] = ()):
@@ -85,11 +89,21 @@ class CapturedStep:
         self._fresh: List[bool] = []        # per output leaf: copied per call
         # K1 launches the graph holds, added to the launch count per replay
         self.k1_per_replay = 0
+        self.capture_s: Optional[float] = None
 
     @property
     def captured(self) -> bool:
         """True once the step is a captured CUDA graph."""
         return self.graph is not None
+
+    def held(self, i: int):
+        """The tree the step holds as its argument ``i`` — the state a
+        donating step writes in place — or None before the first call (and
+        for an input).  Write into its tensors (a restore, `launch/ft.py`);
+        never replace them."""
+        if self._args is None or i in self.inputs:
+            return None
+        return self._args[i]
 
     def __call__(self, *args):
         self._bind(args)
@@ -105,7 +119,9 @@ class CapturedStep:
             return self._run()
         launched = ternary_conv2d_cuda.launches
         out = self._warm_up()  # this call's result
+        t0 = time.perf_counter()
         self._capture(ternary_conv2d_cuda.launches - launched)
+        self.capture_s = time.perf_counter() - t0
         return out
 
     def _run(self):

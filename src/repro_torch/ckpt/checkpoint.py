@@ -23,7 +23,10 @@ Layout (one directory per step):
     exactly-once over the sample stream.
 
 Restore checks the leaf count and each leaf's shape against the target
-state and places every tensor on the target leaf's device and dtype.
+state and places every tensor on the target leaf's device and dtype; with
+``in_place=True`` it copies each leaf into the target's own tensor instead
+(a state a captured step holds), one leaf at a time, so no second state is
+allocated.
 
 In a process group (a train state of DTensors on a real mesh) every rank
 saves and restores: a save gathers each leaf whole, rank 0 writes the same
@@ -178,12 +181,25 @@ def _to_tensor(arr: np.ndarray, dtype_name: Optional[str], like) -> torch.Tensor
     return t
 
 
-def restore_checkpoint(ckpt_dir, state_like, *, step: Optional[int] = None) -> Tuple[Any, Dict]:
+def _copy_into(target, arr: np.ndarray, dtype_name: Optional[str]) -> None:
+    """Leaf ``arr`` written into the tensor ``target`` (a DTensor: this
+    rank's block of it)."""
+    if isinstance(target, DTensor):
+        target.to_local().copy_(_to_tensor(arr, dtype_name, target).to_local())
+    else:
+        target.copy_(_to_tensor(arr, dtype_name, None))
+
+
+def restore_checkpoint(ckpt_dir, state_like, *, step: Optional[int] = None,
+                       in_place: bool = False) -> Tuple[Any, Dict]:
     """Restore into the structure of ``state_like`` (a tree of tensors):
     each leaf takes the target leaf's dtype and device — a DTensor target
     its mesh and placements (every rank reads the file and keeps its
-    blocks).  Raises ValueError when the leaf count or a leaf's shape
-    differs from the target's."""
+    blocks).  With ``in_place`` every leaf is copied into the target's
+    tensor (a DTensor's into this rank's block) and ``state_like`` itself
+    is returned.  Raises ValueError when the leaf count or a leaf's shape
+    differs from the target's (in place: the leaves before it are already
+    written)."""
     d = _step_dir(Path(ckpt_dir), step)
     meta = json.loads((d / "meta.json").read_text())
     leaves_like = tree_leaves(state_like)
@@ -202,5 +218,10 @@ def restore_checkpoint(ckpt_dir, state_like, *, step: Optional[int] = None) -> T
             if tuple(arr.shape) != want:
                 raise ValueError(f"{key}: checkpoint shape {tuple(arr.shape)} != "
                                  f"target {want}")
-            new_leaves.append(_to_tensor(arr, dtypes.get(key), like))
+            if in_place:
+                _copy_into(like, arr, dtypes.get(key))
+            else:
+                new_leaves.append(_to_tensor(arr, dtypes.get(key), like))
+    if in_place:
+        return state_like, meta
     return tree_unflatten(state_like, new_leaves), meta

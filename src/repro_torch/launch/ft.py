@@ -29,6 +29,7 @@ from typing import Callable, Dict, Optional
 
 import torch.distributed as dist
 
+from repro_torch.capture import CapturedStep
 from repro_torch.ckpt.checkpoint import latest_step, restore_checkpoint, save_checkpoint
 from repro_torch.launch.mesh import rank
 
@@ -107,9 +108,14 @@ def run_with_restarts(
     """Supervised training loop: checkpoint/restart with exactly-once data.
 
     ``fault_injector(step)`` raises to simulate node failure (tests use this
-    to verify the restart path end-to-end on one host).  A restore hands the
-    step freshly restored tensors: a captured, donating step
-    (`repro_torch.capture.CapturedStep`) copies them into the state it holds.
+    to verify the restart path end-to-end on one host).  A restore into a
+    step that holds its state already (a `repro_torch.capture.CapturedStep`
+    after its first call, whose graph reads that state's addresses) copies
+    the checkpoint into the held tensors leaf by leaf, each rank into its
+    own blocks: no second state is allocated.  Before a step's first call
+    the checkpoint is restored into a fresh ``init_state()``, and so is a
+    start without a checkpoint (a restart before the first one makes a
+    fresh state, which a held step copies in).
     In a process group every rank runs the loop over its blocks of the
     state: the step to start from is rank 0's reading of the checkpoint
     directory, so every rank restarts at the same step, and ``log``
@@ -126,7 +132,11 @@ def run_with_restarts(
             step_fn = make_step()
             start = _from_rank0(latest_step(ckpt_dir))
             if start is not None:
-                state, meta = restore_checkpoint(ckpt_dir, init_state())
+                held = step_fn.held(0) if isinstance(step_fn, CapturedStep) else None
+                if held is not None:
+                    state, meta = restore_checkpoint(ckpt_dir, held, in_place=True)
+                else:
+                    state, meta = restore_checkpoint(ckpt_dir, init_state())
                 data_pipeline.state.step = int(meta["pipeline_cursor"].get("step", 0))
                 step0 = start
                 history["resumed_from"].append(start)

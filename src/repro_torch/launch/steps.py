@@ -5,8 +5,11 @@ The steps are plain Python over trees of tensors (no compilation).  The
 train step takes gradients with `torch.autograd.grad` (the reference's
 ``jax.value_and_grad``); ``make_train_step(..., donate=True)`` is the
 counterpart of ``jax.jit(step, donate_argnums=(0,))``: the optimizer writes
-params, m, v and the step counter in place and the caller must not reuse the
-old state.  With ``donate=False`` the step leaves its input state untouched.
+params, m, v and the step counter in place, gradient compression its
+residuals, so every leaf of the state keeps its address (what
+`repro_torch.capture.CapturedStep` needs to capture the step), and the
+caller must not reuse the old state.  With ``donate=False`` the step leaves
+its input state untouched.
 The serving steps run without autograd; ``make_decode_step(..., donate=True)`` is the
 counterpart of ``jax.jit(decode, donate_argnums=(2,))``: the cache is written
 in place (its addresses never change, so `repro_torch.capture.CapturedStep`
@@ -189,7 +192,7 @@ def make_train_step(
             # error feedback keeps the optimizer trajectory unbiased.  On
             # DTensors the reduced gradients are compressed (the reference's
             # numbers), each block with the whole leaf's scale.
-            cg, residuals = compress_with_feedback(grads, residuals)
+            cg, residuals = compress_with_feedback(grads, residuals, donate=donate)
             grads = decompress(cg, grads)
 
         new_params, new_opt, om = adamw_update(opt_cfg, state.params, grads, state.opt,

@@ -2,10 +2,15 @@
 `repro.launch.train_lm`.
 
 Resolve ``--arch`` -> a float32 `TrainState` on ``--device`` -> a donating
-train step (`launch/steps.py` ``make_train_step(..., donate=True)``, the
-counterpart of the reference's ``jax.jit(step, donate_argnums=(0,))``) ->
-the supervised loop of `launch/ft.py` (atomic checkpoints, exactly-once
-data cursor, loss guard, restarts).  As in the reference, the step takes
+train step (`launch/steps.py` ``make_train_step(..., donate=True)``)
+wrapped in a `repro_torch.capture.CapturedStep`, the counterpart of the
+reference's ``jax.jit(step, donate_argnums=(0,))``: on the card the first
+step runs eagerly and is captured as one CUDA graph, and every later step,
+across restarts too, is a replay of it over the state it holds (a failed
+capture raises); on the CPU the step runs eagerly over the same static
+arguments -> the supervised loop of `launch/ft.py` (atomic checkpoints,
+exactly-once data cursor, loss guard, restarts; a restart restores the
+checkpoint into the held state in place).  As in the reference, the step takes
 the shard function of ``ShardingRules`` over the local ``(n, 1)`` (data,
 model) mesh: the identity on one device.  On a host with several cards
 ``--device cuda`` names them all: the launcher starts one rank per card
@@ -36,6 +41,7 @@ from pathlib import Path
 import torch
 import torch.distributed as dist
 
+from repro_torch.capture import CapturedStep
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.data.pipeline import LMTokenPipeline
 from repro_torch.device import resolve_device
@@ -55,10 +61,11 @@ from repro_torch.optim.adamw import AdamWConfig
 
 
 def main(argv=None, *, fault_injector=None):
-    """Run the launcher; returns ``(state, history)``.  ``fault_injector(step)``
-    is handed to `run_with_restarts` (tests raise from it to simulate a
-    node failure).  Where the launcher starts one rank per card, it
-    returns ``(None, rank 0's history)``."""
+    """Run the launcher; returns ``(state, history)``, the history with
+    ``step_builds`` (1: one capture, or one first eager run off the card).
+    ``fault_injector(step)`` is handed to `run_with_restarts` (tests raise
+    from it to simulate a node failure).  Where the launcher starts one
+    rank per card, it returns ``(None, rank 0's history)``."""
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", choices=ARCH_IDS, default="gemma-2b")
     ap.add_argument("--smoke", action="store_true", help="reduced config (CPU-sized)")
@@ -100,8 +107,9 @@ def _train(args, fault_injector=None):
     )
     mesh = world_mesh() if dist.is_initialized() else make_local_mesh(device)
     rules = ShardingRules(mesh)
-    step = make_train_step(cfg, opt_cfg, shard=rules.make_shard_fn(),
-                           compress_grads=args.compress_grads, donate=True)
+    step = CapturedStep(make_train_step(cfg, opt_cfg, shard=rules.make_shard_fn(),
+                                        compress_grads=args.compress_grads, donate=True),
+                        device, inputs=(1,))
 
     def init_state():
         gen = torch.Generator(device=device).manual_seed(args.seed)
@@ -117,6 +125,7 @@ def _train(args, fault_injector=None):
         ckpt_every=args.ckpt_every, fault_injector=fault_injector,
     )
     dt = time.time() - t0
+    hist["step_builds"] = step.builds
     losses = hist["losses"]
     if rank() == 0:
         print(f"[train] {cfg.name}: {len(losses)} steps in {dt:.1f}s "

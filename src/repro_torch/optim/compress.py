@@ -10,7 +10,10 @@ step's residual, so the optimizer's trajectory stays unbiased.
     cg, residuals = compress_with_feedback(grads, residuals)
     grads_hat = decompress(cg, grads)     # what the optimizer consumes
 
-Non-float and 0-d leaves pass through untouched.
+Non-float and 0-d leaves pass through untouched.  With ``donate=True`` the
+new residuals are written into the given ones (the counterpart of a jitted
+step that donates its whole state), so a captured step finds them where it
+left them.
 """
 from __future__ import annotations
 
@@ -35,12 +38,13 @@ def _is_compressed(x) -> bool:
 
 
 def _compress_leaf(g: torch.Tensor, residual: torch.Tensor, total=None,
-                   n_total: int = 0) -> Tuple[CompressedGrad, torch.Tensor]:
-    """One leaf's trits, scale and new residual.  With ``total`` (a sum
-    over the other blocks of a leaf split across devices) ``g`` and
-    ``residual`` are this device's blocks of a leaf of ``n_total`` values:
-    the scale and alpha are the whole leaf's, the trits and the residual
-    this block's."""
+                   n_total: int = 0, donate: bool = False
+                   ) -> Tuple[CompressedGrad, torch.Tensor]:
+    """One leaf's trits, scale and new residual (with ``donate`` written
+    into ``residual``, which is returned).  With ``total`` (a sum over the
+    other blocks of a leaf split across devices) ``g`` and ``residual`` are
+    this device's blocks of a leaf of ``n_total`` values: the scale and
+    alpha are the whole leaf's, the trits and the residual this block's."""
     gf = g.to(torch.float32) + residual
     flat = gf.reshape(-1)
     n = flat.shape[0]
@@ -58,6 +62,8 @@ def _compress_leaf(g: torch.Tensor, residual: torch.Tensor, total=None,
         sums = total(torch.stack([torch.sum(t * t), torch.sum(flat * t)]))
         alpha = sums[1] / torch.clamp(sums[0], min=1.0)
     new_residual = (gf - (alpha * t).reshape(gf.shape)).to(residual.dtype)
+    if donate:
+        new_residual = residual.copy_(new_residual)
     tp = F.pad(t.to(torch.int8), (0, (-n) % 4))
     return CompressedGrad(pack_ternary(tp, axis=0), alpha.to(torch.float32), n), new_residual
 
@@ -77,12 +83,14 @@ def init_residuals(params) -> Any:
     )
 
 
-def compress_with_feedback(grads, residuals):
+def compress_with_feedback(grads, residuals, *, donate: bool = False):
     """Returns (compressed tree, new residuals).  Non-float and 0-d leaves
     pass through untouched.  A DTensor leaf is compressed block by block
     with the whole leaf's scale and alpha (each sum all-reduced over the
     mesh dims that split it), its residual kept per block: the numbers of
-    the leaf compressed whole."""
+    the leaf compressed whole.  With ``donate`` every new residual is
+    written into its old tensor and the returned tree holds the given
+    tensors (the same bits as without)."""
     comp, new_r = [], []
     for g, r in zip(tree_leaves(grads), tree_leaves(residuals)):
         if not g.is_floating_point() or g.ndim == 0:
@@ -92,9 +100,9 @@ def compress_with_feedback(grads, residuals):
         dims = shard_dims(g)
         total = (None if not dims
                  else lambda t, g=g, dims=dims: sum_over(t, g.device_mesh, dims))
-        c, nr = _compress_leaf(to_local(g), to_local(r), total, g.numel())
+        c, nr = _compress_leaf(to_local(g), to_local(r), total, g.numel(), donate)
         comp.append(c)
-        new_r.append(like(r, nr))
+        new_r.append(r if donate else like(r, nr))
     return tree_unflatten(grads, comp), tree_unflatten(residuals, new_r)
 
 
