@@ -41,6 +41,10 @@ version.  It imports `repro_torch` only.
     a `SessionPool` split into two blocks on this card (`PoolSharding`),
     each block its own captured step (kernel K1), and the launcher's
     ``--dvs --shard``;
+  * the benches — `benchmarks/{kernel,backend,serving}_bench_torch.py` at
+    their full cells and nets, `paper_tables_torch.py --silicon` and
+    ``--bitsim-check``, each through its ``main`` in this process (kernels
+    K1 and K2);
   * the LM on a real device mesh — full-width ``gemma-2b`` served (captured
     decode) and trained (one ternary step) through DTensors on an NCCL
     process group of world size 1, against the plain steps.  One card
@@ -228,7 +232,20 @@ line):
                 world size; K1 and K2 launch 0 times.  The group is
                 destroyed at the end of the phase.  Prints the ``spmd``
                 JSON line
-  13. result    the ``kernels`` JSON line (each kernel's time beside its
+  13. benches   the repo's benches through their ``main(argv)``, in process,
+                each writing its JSON into a temporary directory: the kernel
+                bench at its full cells (K1 and K2 against the dense
+                unpacked path and their plain versions), the backend bench
+                at its full nets (every backend's forward captured, fused ==
+                kernel == bitsim == ref), the serving bench at full width
+                (pools 2, 4 and 8 on fused and ref, fleet, gated and phases),
+                ``paper_tables_torch --silicon`` (its rows ==
+                ``BENCH_silicon.json`` row for row) and ``--bitsim-check``;
+                any non-zero exit fails the run.  K1 and K2 launches are
+                counted over the phase (``launches_bench``; both must be >
+                0).  Prints the ``benches`` JSON line with each bench's
+                seconds
+  14. result    the ``kernels`` JSON line (each kernel's time beside its
                 bound, plain version and library yardstick, all from this
                 run), the card line, and the last line
                 ``{"ok": true, "device": {...}}``
@@ -2995,6 +3012,63 @@ def spmd_path(dev):
             "phase_s": time.perf_counter() - t_phase}
 
 
+def bench_path(dev):
+    """Phase 13: the kernel, backend and serving benches, the silicon sweep
+    and the bitsim check, each through its ``main(argv)`` on the card.
+    Returns the phase's report with K1 and K2 launches."""
+    import tempfile
+
+    from benchmarks import (
+        backend_bench_torch,
+        kernel_bench_torch,
+        paper_tables_torch,
+        serving_bench_torch,
+    )
+    from repro_torch.kernels.ternary_conv2d import ternary_conv2d_cuda
+    from repro_torch.kernels.ternary_matmul import ternary_matmul_cuda
+
+    t_phase = time.perf_counter()
+    ternary_conv2d_cuda.launches = 0
+    ternary_matmul_cuda.launches = 0
+    seconds = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp)
+        runs = [
+            ("kernels", kernel_bench_torch, ["--out", str(out / "kernels.json")]),
+            ("backends", backend_bench_torch, ["--out", str(out / "backends.json")]),
+            ("serving", serving_bench_torch, ["--out", str(out / "serving.json")]),
+            ("silicon", paper_tables_torch, ["--silicon", "--out", str(out / "silicon.json")]),
+            ("bitsim_check", paper_tables_torch, ["--bitsim-check"]),
+        ]
+        for name, module, argv in runs:
+            t0 = time.perf_counter()
+            rc = module.main(argv)
+            seconds[name] = time.perf_counter() - t0
+            if rc != 0:
+                fail(f"benches: {module.__name__.split('.')[-1]} {' '.join(argv)} exited {rc}")
+        committed = json.loads((REPO / "BENCH_silicon.json").read_text())["results"]
+        if json.loads((out / "silicon.json").read_text())["results"] != committed:
+            fail("benches: paper_tables_torch --silicon rows != BENCH_silicon.json")
+        kernels = json.loads((out / "kernels.json").read_text())["results"]
+    launches = {"ternary_conv2d": ternary_conv2d_cuda.launches,
+                "ternary_matmul": ternary_matmul_cuda.launches}
+    for name, n in launches.items():
+        if n == 0:
+            fail(f"benches: {name} launched 0 times over the benches")
+    report = {"seconds": seconds, "kernel_launches": launches,
+              "kernel_bench": [{k: r[k] for k in ("name", "dense_us", "dense_autotuned_us",
+                                                  "dense_deterministic_us", "packed_us",
+                                                  "plain_us", "speedup_packed_vs_unpacked",
+                                                  "bit_exact")}
+                               for r in kernels],
+              "phase_s": time.perf_counter() - t_phase}
+    print(f"[chip_smoke] benches: kernel, backend and serving benches, --silicon (== "
+          f"BENCH_silicon.json) and --bitsim-check exit 0 in {report['phase_s']:.1f} s; "
+          f"K1 {launches['ternary_conv2d']} and K2 {launches['ternary_matmul']} launches",
+          flush=True)
+    return report
+
+
 def main() -> int:
     # phase 1: device
     if not torch.cuda.is_available():
@@ -3051,7 +3125,10 @@ def main() -> int:
     # phase 12: the LM on a real device mesh (its group destroyed at the end)
     spmd_report = spmd_path(dev)
 
-    # phase 13: results
+    # phase 13: the benches
+    bench_report = bench_path(dev)
+
+    # phase 14: results
     mm = mm_rows[0]  # the quickstart's launch: 64x2048x512 float32
     kernels = {"kernels": [{
         "name": "ternary_conv2d", "route": "cuda", "source": K1_SOURCE,
@@ -3072,6 +3149,7 @@ def main() -> int:
         "launches_shard": k1_shard,
         "launches_shard_cover": f"{shard_report['ticks']} ticks of the pool in "
                                 f"{SHARD_BLOCKS} blocks",
+        "launches_bench": bench_report["kernel_launches"]["ternary_conv2d"],
         "times_cover": "the 9 launches of one pool tick at pool size 8 (sum)",
         "shapes": per_shape,
     }, {
@@ -3085,6 +3163,7 @@ def main() -> int:
         "launches_lm_train": lm_train_report["kernel_launches"]["ternary_matmul"],
         "launches_dryrun": dryrun_report["kernel_launches"]["ternary_matmul"],
         "launches_spmd": spmd_report["kernel_launches"]["ternary_matmul"],
+        "launches_bench": bench_report["kernel_launches"]["ternary_matmul"],
         "times_cover": "one launch at the quickstart shape 64x2048x512, float32",
         "shapes": mm_rows,
     }]}
@@ -3096,6 +3175,7 @@ def main() -> int:
     print(json.dumps({"dryrun": dryrun_report}), flush=True)
     print(json.dumps({"shard": shard_report}), flush=True)
     print(json.dumps({"spmd": spmd_report}), flush=True)
+    print(json.dumps({"benches": bench_report}), flush=True)
     print(json.dumps(kernels), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
