@@ -488,11 +488,15 @@ def _make_tracer(args):
 
 
 def _write_obs(args, tracer, programs, metrics, tag: str) -> None:
-    """Write the ``--trace`` Perfetto JSON (serving spans + one sim
-    layer-timeline track per served program) and the ``--metrics-out``
-    Prometheus snapshot, when requested."""
+    """Write the ``--trace`` Perfetto JSON (serving spans, the pools' device
+    spans + one sim layer-timeline track per served program) and the
+    ``--metrics-out`` Prometheus snapshot, when requested.  Device spans
+    still pending are waited for first."""
     if tracer is not None:
         from repro_torch.obs import save_chrome
+        from repro_torch.obs.device import resolve_pending
+
+        resolve_pending(tracer)
 
         save_chrome(
             args.trace, tracer, sim_programs=programs,

@@ -1,10 +1,16 @@
 """`repro_torch.obs` — zero-overhead-when-disabled observability of the port.
-Counterpart of `repro.obs`; three modules:
+Counterpart of `repro.obs`; four modules:
 
   * `repro_torch.obs.tracer` — bounded ring-buffer event recorder
     (`Tracer`; `NULL_TRACER` is the always-available disabled instance the
     instrumented hot paths hold when tracing is off).  Its wall-clock spans
-    around work on the card measure the host's enqueue time.
+    around work on the card measure the host's enqueue time, or its wait
+    where the span blocks on the card (the serving tick's ``pool.upload`` of
+    a pageable batch, ``flush``).
+  * `repro_torch.obs.device` — device time on the tracer's clock: CUDA
+    timing events recorded around a pool's upload and replay, resolved
+    without waiting into ``dev.upload`` / ``dev.replay`` spans on a device
+    lane (`Tracer.complete`).
   * `repro_torch.obs.metrics` — label-keyed counter/gauge/histogram registry
     with a Prometheus text snapshot (`MetricsRegistry`), plus `SampleWindow`,
     the scheduler's bounded latency trace.
@@ -16,6 +22,8 @@ CLI: ``python -m repro_torch.obs {summarize,export,diff}`` (see `__main__`).
 Wiring: ``--trace PATH`` on `repro_torch.launch.serve` / `repro_torch.launch.train`.
 """
 from repro_torch.obs.export import (
+    PORT_EVENTS,
+    TICK_PHASES,
     layer_timeline,
     load,
     phase_breakdown,
@@ -43,4 +51,6 @@ __all__ = [
     "trace_summary",
     "trace_diff",
     "validate_nesting",
+    "PORT_EVENTS",
+    "TICK_PHASES",
 ]

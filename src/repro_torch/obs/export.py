@@ -31,6 +31,13 @@ from repro_torch.obs.tracer import Event, Tracer
 # of total tick time (serving_bench schema-4 cell, ci_summary table).
 TICK_PHASES = ("gate.park", "gate.scan", "admit", "assemble", "step")
 
+# The events only the port emits (the reference's tick has none of them):
+# the tick's post-step spans, the pool's copy and replay, its build instant,
+# the device spans from CUDA events and the host's cost of resolving them.
+# A comparison of the port's trace with the reference's leaves these out.
+PORT_EVENTS = ("advance", "flush", "pool.upload", "pool.replay", "pool.build",
+               "dev.upload", "dev.replay", "obs.resolve")
+
 SERVING_PID = 1
 SIM_PID = 100
 
@@ -188,7 +195,10 @@ def validate_nesting(doc: dict) -> List[str]:
         events.sort(key=lambda e: (e["ts"], -e.get("dur", 0)))
         stack: List[Tuple[float, float, str]] = []
         for ev in events:
-            start, end = ev["ts"], ev["ts"] + ev.get("dur", 0)
+            # compared to the nanosecond: a wall-clock trace's microseconds
+            # are whole nanoseconds, whose sums float arithmetic can round
+            # past a span that starts where another ends
+            start, end = round(ev["ts"], 3), round(ev["ts"] + ev.get("dur", 0), 3)
             while stack and stack[-1][1] <= start:
                 stack.pop()
             if stack and end > stack[-1][1]:

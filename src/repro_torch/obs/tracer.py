@@ -20,8 +20,8 @@ Three event phases (Chrome trace_event vocabulary; `repro_torch.obs.export`
 renders them for Chrome/Perfetto):
 
   * ``"X"`` — a *complete span*: emitted when the ``span()`` context
-    manager exits, carrying start timestamp + duration.  Spans on one
-    track must nest properly.
+    manager exits, carrying start timestamp + duration, or by `complete`
+    with both given (device spans).  Spans on one track must nest properly.
   * ``"i"`` — an *instant*: park/wake/scale/queue-full markers.
   * ``"C"`` — a *counter sample*: occupancy, queue depth, sim counters.
 
@@ -29,16 +29,25 @@ renders them for Chrome/Perfetto):
 unconditionally — the module-level `NULL_TRACER` when none was requested —
 so the hot path has *no* ``if tracing:`` branches.  `NullTracer.span`
 returns one shared no-op context manager (no allocation, no event), and
-``instant``/``counter`` are empty methods.  The tick flow is observed,
+``instant``/``counter``/``complete`` are empty methods.  The tick flow is observed,
 never altered: traced and untraced runs are logit-byte-identical
 (tests/test_torch_obs.py pins this).
 
-**Spans around CUDA work measure enqueue time.**  PyTorch returns from a
-kernel launch before the card has run it, so a wall-clock span around a
-pool step on the card brackets the host's enqueue of the step, not its
-device time — unless something inside the span waits for the device (the
-scheduler's device-to-host logits copy on a tick with a departure does).
-Device time per span needs CUDA events, which this tracer does not record.
+**Host spans measure enqueue or wait; device spans measure device time.**
+PyTorch returns from a kernel launch before the card has run it, so a
+wall-clock span around work on the card brackets the host's enqueue of it,
+not its device time.  A span measures a wait only where something inside it
+blocks on the device: in the serving tick, ``pool.upload`` (a pageable
+frame batch's copy, which first waits for the stream's earlier work, the
+previous replay) and ``flush`` (the departures' device-to-host copy, which
+waits for this tick's replay); ``pool.replay``, ``advance``, ``admit``,
+``assemble`` and the gate's spans are host work and enqueue only.  Device
+time comes from CUDA timing events that the instrumented code records
+around its work and resolves later (`repro_torch.obs.device`): `complete`
+emits them as ``"X"`` events with given times on a device lane
+(``<track>.device``), placed on this tracer's clock.  A serving pool's are
+``dev.upload`` and ``dev.replay``, for a sample of its steps; resolving
+them is the host span ``obs.resolve``, the tracer's own cost.
 
 **Clocks.**  ``clock="wall"`` stamps `time.perf_counter_ns` (monotonic,
 microseconds in the export).  ``clock="tick"`` stamps a deterministic
@@ -101,6 +110,10 @@ class _Span:
         tr._emit(Event("X", self._name, self._t0, tr._now() - self._t0,
                        tr._tid(), self._track, self._args))
 
+    def set_args(self, **args) -> None:
+        """Add args known only inside the span (a count of what it did)."""
+        self._args = {**(self._args or {}), **args}
+
 
 class _NullSpan:
     """The shared no-op span: entering/exiting records nothing."""
@@ -111,6 +124,9 @@ class _NullSpan:
         return self
 
     def __exit__(self, *exc) -> None:
+        return None
+
+    def set_args(self, **args) -> None:
         return None
 
 
@@ -133,6 +149,10 @@ class NullTracer:
         return None
 
     def counter(self, name: str, value, track: Optional[str] = None) -> None:
+        return None
+
+    def complete(self, name: str, ts: int, dur: int, track: Optional[str] = None,
+                 **args) -> None:
         return None
 
     def events(self) -> List[Event]:
@@ -179,6 +199,11 @@ class Tracer:
             return next(self._seq)
         return time.perf_counter_ns() - self._t0
 
+    def now(self) -> int:
+        """The tracer's current timestamp (wall clock: nanoseconds since the
+        tracer was made; tick clock: the next sequence number)."""
+        return self._now()
+
     def _tid(self) -> int:
         ident = threading.get_ident()
         entry = self._threads.get(ident)
@@ -220,6 +245,14 @@ class Tracer:
         args = value if isinstance(value, dict) else {name: value}
         self._emit(Event("C", name, self._now(), 0, self._tid(), track,
                          dict(args)))
+
+    def complete(self, name: str, ts: int, dur: int, track: Optional[str] = None,
+                 **args) -> None:
+        """One complete ("X") span with given times on this tracer's clock:
+        work timed elsewhere, such as a device span from CUDA events
+        (`repro_torch.obs.device`), emitted once its times are known."""
+        self._emit(Event("X", name, int(ts), int(dur), self._tid(), track,
+                         args or None))
 
     # -- inspection --------------------------------------------------------
 

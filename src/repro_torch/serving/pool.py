@@ -46,6 +46,23 @@ fleet feeder's double buffers) is copied without blocking and an event
 marks when the copy is done (`last_upload`); any other batch is copied
 synchronously.  `step_prepared` returns a new logits tensor every tick.
 
+**Tracing.**  Under the bound tracer's ``pool.step`` span, ``pool.upload``
+(args ``bytes``, ``pinned``) covers the batch's copy — a wait for the
+stream's earlier work, the previous replay, when the batch is pageable —
+and ``pool.replay`` (arg ``k1``: the K1 launches the replays hold, from
+`CapturedStep.k1_per_replay`, 0 on the tick that builds the step) the
+blocks' steps and the concatenation, host enqueue only.  An instant
+``pool.build`` (arg ``capture_s``) marks each block's build of its step.
+With an enabled wall-clock tracer on a CUDA pool, `bind_tracer` binds a
+`repro_torch.obs.device.DeviceSpans`: timing events before the upload,
+between upload and replay, and after the replay, recorded outside the
+graph, resolved without waiting at the next step into ``dev.upload`` and
+``dev.replay`` spans of device time on the lane ``<track>.device`` (one
+lane per device, ``<track>.device<i>``, for a sharded pool); a step is
+timed at most every 5 ms of host time, and resolving is an ``obs.resolve``
+span under ``pool.step`` (`repro_torch.obs.device`).  Otherwise the pool
+holds `NULL_DEVICE_SPANS`, whose calls do nothing.
+
 **Batch-axis sharding.**  ``sharding`` lays the pool axis across devices as
 the reference's ``PartitionSpec("pool")`` does: a `PoolSharding` over n
 devices gives device i the contiguous block of slots ``[i*P/n, (i+1)*P/n)``.
@@ -67,6 +84,7 @@ import torch
 
 from repro_torch.capture import CapturedStep
 from repro_torch.core.tcn import StreamState
+from repro_torch.obs.device import NULL_DEVICE_SPANS, DeviceSpans, records_device_time
 from repro_torch.obs.tracer import NULL_TRACER
 from repro_torch.serving.masking import (
     PoolState,
@@ -223,8 +241,12 @@ class SessionPool:
         self._slot_of: Dict[str, int] = {}
         # observability: NULL_TRACER when tracing is off (no-op span, no
         # branch in the hot path); spans wrap the step from the outside
-        self.tracer = tracer if tracer is not None else NULL_TRACER
+        self.tracer = NULL_TRACER
         self.track = getattr(deployed.graph, "name", "pool")
+        self._device_spans = NULL_DEVICE_SPANS
+        self._k1 = 0  # K1 launches a replay of every block holds
+        self._dev_args: List[Dict] = []  # the device spans' args, per device
+        self.bind_tracer(tracer)
 
     @property
     def state(self) -> PoolState:
@@ -328,26 +350,29 @@ class SessionPool:
         """Copy a host ``(batch, active)`` pair into the static device
         inputs: without blocking from pinned memory (recording
         `last_upload`), synchronously otherwise."""
-        src_b, src_a = torch.as_tensor(batch), torch.as_tensor(active)
-        want = (self.pool_size, *self.frame_shape)
-        if tuple(src_b.shape) != want or tuple(src_a.shape) != (self.pool_size,):
-            raise ValueError(
-                f"batch {tuple(src_b.shape)} / active {tuple(src_a.shape)} do not "
-                f"fit the pool's {want} / ({self.pool_size},)"
-            )
-        pinned = (self.device.type == "cuda" and src_b.is_pinned()
-                  and src_a.is_pinned())
-        for b in self._blocks:
-            b.frames.copy_(src_b[b.lo:b.lo + b.size], non_blocking=pinned)
-            b.active.copy_(src_a[b.lo:b.lo + b.size], non_blocking=pinned)
-        self.last_upload = None
-        if pinned:
-            events = []
-            for dev in dict.fromkeys(b.device for b in self._blocks):
-                with torch.cuda.device(dev):
-                    events.append(torch.cuda.Event())
-                    events[-1].record()
-            self.last_upload = events[0] if len(events) == 1 else _Events(events)
+        with self.tracer.span("pool.upload", track=self.track) as span:
+            src_b, src_a = torch.as_tensor(batch), torch.as_tensor(active)
+            want = (self.pool_size, *self.frame_shape)
+            if tuple(src_b.shape) != want or tuple(src_a.shape) != (self.pool_size,):
+                raise ValueError(
+                    f"batch {tuple(src_b.shape)} / active {tuple(src_a.shape)} do not "
+                    f"fit the pool's {want} / ({self.pool_size},)"
+                )
+            pinned = (self.device.type == "cuda" and src_b.is_pinned()
+                      and src_a.is_pinned())
+            span.set_args(bytes=src_b.nbytes + src_a.nbytes, pinned=pinned)
+            self._device_spans.mark(0)
+            for b in self._blocks:
+                b.frames.copy_(src_b[b.lo:b.lo + b.size], non_blocking=pinned)
+                b.active.copy_(src_a[b.lo:b.lo + b.size], non_blocking=pinned)
+            self.last_upload = None
+            if pinned:
+                events = []
+                for dev in dict.fromkeys(b.device for b in self._blocks):
+                    with torch.cuda.device(dev):
+                        events.append(torch.cuda.Event())
+                        events[-1].record()
+                self.last_upload = events[0] if len(events) == 1 else _Events(events)
 
     def step_prepared(self, batch: np.ndarray, active: np.ndarray) -> torch.Tensor:
         """The device half of a tick: copy an assembled ``(batch, active)``
@@ -357,13 +382,25 @@ class SessionPool:
         block's device — callers map slots back to stream ids.  A pageable
         host buffer has been read when this returns; a pinned one once
         `last_upload` has completed."""
-        with self.tracer.span("pool.step", track=self.track,
-                              pool_size=self.pool_size):
+        tr, track, timed = self.tracer, self.track, self._device_spans
+        with tr.span("pool.step", track=track, pool_size=self.pool_size):
+            timed.resolve()
             self._upload(batch, active)
-            if len(self._blocks) == 1:
-                return self._blocks[0].step()
-            dev = self._blocks[0].device
-            return torch.cat([b.step().to(dev) for b in self._blocks])
+            with tr.span("pool.replay", track=track, k1=self._k1):
+                timed.mark(1)
+                outs = []
+                for b in self._blocks:
+                    builds = b.step.builds
+                    outs.append(b.step())
+                    if b.step.builds != builds:
+                        tr.instant("pool.build", track=track, capture_s=b.step.capture_s)
+                        self._count_k1()
+                timed.mark(2)
+                timed.close(self._dev_args)
+                if len(outs) == 1:
+                    return outs[0]
+                dev = self._blocks[0].device
+                return torch.cat([o.to(dev) for o in outs])
 
     def step(self, frames: Mapping[str, object]) -> Dict[str, torch.Tensor]:
         """One pool tick.  ``frames`` maps stream id -> ``[H, W, C]`` frame
@@ -375,10 +412,33 @@ class SessionPool:
 
     def bind_tracer(self, tracer, track: Optional[str] = None) -> None:
         """Attach a tracer (the batcher wires its own through so pool.step
-        spans land on the same lane as the tick spans)."""
-        self.tracer = tracer if tracer is not None else NULL_TRACER
-        if track is not None:
-            self.track = track
+        spans land on the same lane as the tick spans).  An enabled
+        wall-clock tracer on a CUDA pool also gets the pool's device spans
+        (module docstring); the first binding to a tracer synchronises each
+        device once, to anchor its clock."""
+        tracer = tracer if tracer is not None else NULL_TRACER
+        track = self.track if track is None else track
+        if tracer is self.tracer and track == self.track:
+            return  # rebound as it was (a fleet bucket's pool swapped back in)
+        self._device_spans.resolve(wait=True)  # into the tracer they were recorded for
+        self.tracer, self.track = tracer, track
+        self._device_spans = NULL_DEVICE_SPANS
+        if records_device_time(tracer, self.device):
+            devices = list(dict.fromkeys(b.device for b in self._blocks))
+            lanes = ([f"{track}.device"] if len(devices) == 1
+                     else [f"{track}.device{i}" for i in range(len(devices))])
+            self._device_spans = DeviceSpans(tracer, devices, lanes,
+                                             ("dev.upload", "dev.replay"), track=track)
+        self._count_k1()
+
+    def _count_k1(self) -> None:
+        """K1 launches a replay holds (`CapturedStep.k1_per_replay`): in all,
+        for ``pool.replay``, and per device, for each ``dev.replay``."""
+        per_device: Dict[torch.device, int] = {}
+        for b in self._blocks:
+            per_device[b.device] = per_device.get(b.device, 0) + b.step.k1_per_replay
+        self._k1 = sum(per_device.values())
+        self._dev_args = [{"dev.replay": {"k1": n}} for n in per_device.values()]
 
     # -- introspection -----------------------------------------------------
 

@@ -46,8 +46,18 @@ frame set is exactly `ActivityGate.plan` of the stream's activity trace.
 See `repro_torch.serving.gating`.
 
 ``tracer`` (a `repro_torch.obs.Tracer`; `NULL_TRACER` by default) records
-tick / gate / admit / assemble / step spans and park / wake instants;
-its wall-clock spans around work on the card measure enqueue time.
+park / wake instants and the spans that cover a tick: ``tick`` around it,
+``gate.park`` / ``gate.scan``, ``admit``, ``assemble`` and ``advance`` (the
+per-slot outputs, cursor advance, evictions and departures; arg
+``departures``) are host work; ``step`` holds the pool's ``pool.step``,
+whose ``pool.upload`` waits for the previous replay when the batch is
+pageable and whose ``pool.replay`` only enqueues; ``flush`` (arg ``rows``;
+on ticks with departures only) is the departures' device-to-host copy and
+its wait for this tick's replay.  On a CUDA pool under a wall-clock tracer
+the pool adds ``dev.upload`` / ``dev.replay``, the card's own time of its
+copy and its replay (`repro_torch.serving.pool`).  A `StreamResult` carries
+the host clock (``time.perf_counter_ns``) at its ``submit`` and at its first
+admission, traced or not.
 ``metrics`` (a `repro_torch.obs.MetricsRegistry`) keeps the always-on
 occupancy, queue, frame and tick-latency series.
 
@@ -107,7 +117,9 @@ class StreamResult:
     threshold — it never touched the device), ``frames_processed`` /
     ``frames_skipped`` split the clip, and ``admitted_tick`` is -1 when
     the stream was never admitted.  Ungated serving leaves the defaults:
-    every frame processed, none skipped."""
+    every frame processed, none skipped.  ``submitted_ns`` and
+    ``admitted_ns`` are the host clock at `ContinuousBatcher.submit` and at
+    the first admission (the rule of ``admitted_tick``)."""
 
     stream_id: str
     logits: Optional[np.ndarray]  # [n_classes], after the last processed frame
@@ -118,6 +130,10 @@ class StreamResult:
     net: Optional[str] = None
     frames_processed: int = -1  # -1: ungated, == n_frames
     frames_skipped: int = 0
+    # host clock (time.perf_counter_ns) at submit and at the first admission
+    # (0: never admitted); not part of a result's equality or repr
+    submitted_ns: int = dataclasses.field(default=0, compare=False, repr=False)
+    admitted_ns: int = dataclasses.field(default=0, compare=False, repr=False)
 
     def __post_init__(self):
         if self.frames_processed < 0:
@@ -179,6 +195,9 @@ class ContinuousBatcher:
         self._inflight: Dict[str, StreamRequest] = {}
         self._next_frame: Dict[str, int] = {}
         self._admitted_tick: Dict[str, int] = {}
+        # host clock at submit and at the first admission, per live stream
+        self._submitted_ns: Dict[str, int] = {}
+        self._admitted_ns: Dict[str, int] = {}
         # gated streams currently without a slot (asleep); gate states
         # persist after departure so stats can total processed/skipped
         self._parked: Dict[str, StreamRequest] = {}
@@ -215,6 +234,7 @@ class ContinuousBatcher:
         )
         if request.stream_id in ids:
             raise ValueError(f"duplicate stream id {request.stream_id!r}")
+        self._submitted_ns[request.stream_id] = time.perf_counter_ns()
         if self.gate is not None:
             self._gate_state[request.stream_id] = GateState()
             self._parked[request.stream_id] = request
@@ -238,23 +258,35 @@ class ContinuousBatcher:
         for req in self._queue:
             if req.stream_id == stream_id:
                 self._queue.remove(req)
+                self._forget_clock(stream_id)
                 self.cancelled.append(stream_id)
                 return "queued"
         if stream_id in self._parked:
             del self._parked[stream_id]
             self._gate_state[stream_id].retained = None
             self._admitted_tick.pop(stream_id, None)
+            self._forget_clock(stream_id)
             self.cancelled.append(stream_id)
             return "parked"
         if stream_id in self._inflight:
             self.pool.evict(stream_id)
             del self._inflight[stream_id], self._next_frame[stream_id]
             del self._admitted_tick[stream_id]
+            self._forget_clock(stream_id)
             self.cancelled.append(stream_id)
             if self.feeder is not None:
                 self.feeder.invalidate()
             return "inflight"
         raise KeyError(f"unknown or finished stream {stream_id!r}")
+
+    def _forget_clock(self, sid: str) -> None:
+        self._submitted_ns.pop(sid, None)
+        self._admitted_ns.pop(sid, None)
+
+    def _clock_stamps(self, sid: str) -> Dict[str, int]:
+        """A departing stream's host-clock stamps, as `StreamResult` fields."""
+        return {"submitted_ns": self._submitted_ns.pop(sid, 0),
+                "admitted_ns": self._admitted_ns.pop(sid, 0)}
 
     @property
     def pending(self) -> bool:
@@ -328,7 +360,9 @@ class ContinuousBatcher:
             self._inflight[sid] = req
             self._next_frame[sid] = cursor
             # the FIRST admission tick survives park/wake cycles
-            self._admitted_tick.setdefault(sid, self.tick_index)
+            if sid not in self._admitted_tick:
+                self._admitted_tick[sid] = self.tick_index
+                self._admitted_ns[sid] = time.perf_counter_ns()
         self._queue.extendleft(reversed(waiting))
 
     def _depart(self, result: StreamResult, logits: Optional[torch.Tensor],
@@ -344,16 +378,17 @@ class ContinuousBatcher:
         step's logits when all rows come from it, else the rows stacked."""
         if not self._departing:
             return
-        sources = {id(t): t for _, t, _ in self._departing}
-        if len(sources) == 1:
-            host = next(iter(sources.values())).detach().cpu().numpy()
-            rows = [host[i] for _, _, i in self._departing]
-        else:
-            host = torch.stack([t[i] for _, t, i in self._departing]).detach().cpu().numpy()
-            rows = list(host)
-        for (result, _, _), row in zip(self._departing, rows):
-            result.logits = row.copy()
-        self._departing.clear()
+        with self.tracer.span("flush", track=self.track, rows=len(self._departing)):
+            sources = {id(t): t for _, t, _ in self._departing}
+            if len(sources) == 1:
+                host = next(iter(sources.values())).detach().cpu().numpy()
+                rows = [host[i] for _, _, i in self._departing]
+            else:
+                host = torch.stack([t[i] for _, t, i in self._departing]).detach().cpu().numpy()
+                rows = list(host)
+            for (result, _, _), row in zip(self._departing, rows):
+                result.logits = row.copy()
+            self._departing.clear()
 
     def _gate_finish(self, sid: str, req: StreamRequest) -> None:
         """Depart a stream that ran out of frames without a slot: its
@@ -373,6 +408,7 @@ class ContinuousBatcher:
             net=req.net,
             frames_processed=gs.processed,
             frames_skipped=gs.skipped,
+            **self._clock_stamps(sid),
         ), logits, row)
 
     def _gate_park_inflight(self) -> Set[str]:
@@ -513,34 +549,39 @@ class ContinuousBatcher:
                 logits = self.pool.step_prepared(batch, active)
             if self.feeder is not None:
                 self.feeder.copied(self.pool.last_upload)
-            slots = {sid: self.pool.slot_of(sid) for sid in stepping}
-            out = {sid: logits[slot] for sid, slot in slots.items()}
-            for sid in stepping:
-                self._next_frame[sid] += 1
-                req = self._inflight[sid]
-                gs = self._gate_state.get(sid)
-                if gs is not None:
-                    gs.cursor = self._next_frame[sid]
-                    gs.processed += 1
-                    gs.last_logits = (logits, slots[sid])  # stays on the device
-                if self._next_frame[sid] >= req.frames.shape[0]:
-                    self.pool.evict(sid)
-                    self._depart(
-                        StreamResult(
-                            stream_id=sid,
-                            logits=None,
-                            n_frames=int(req.frames.shape[0]),
-                            admitted_tick=self._admitted_tick[sid],
-                            finished_tick=self.tick_index,
-                            label=req.label,
-                            net=req.net,
-                            frames_processed=gs.processed if gs else -1,
-                            frames_skipped=gs.skipped if gs else 0,
-                        ),
-                        logits, slots[sid],
-                    )
-                    del self._inflight[sid], self._next_frame[sid]
-                    del self._admitted_tick[sid]
+            with tr.span("advance", track=track) as span:
+                slots = {sid: self.pool.slot_of(sid) for sid in stepping}
+                out = {sid: logits[slot] for sid, slot in slots.items()}
+                departures = 0
+                for sid in stepping:
+                    self._next_frame[sid] += 1
+                    req = self._inflight[sid]
+                    gs = self._gate_state.get(sid)
+                    if gs is not None:
+                        gs.cursor = self._next_frame[sid]
+                        gs.processed += 1
+                        gs.last_logits = (logits, slots[sid])  # stays on the device
+                    if self._next_frame[sid] >= req.frames.shape[0]:
+                        self.pool.evict(sid)
+                        self._depart(
+                            StreamResult(
+                                stream_id=sid,
+                                logits=None,
+                                n_frames=int(req.frames.shape[0]),
+                                admitted_tick=self._admitted_tick[sid],
+                                finished_tick=self.tick_index,
+                                label=req.label,
+                                net=req.net,
+                                frames_processed=gs.processed if gs else -1,
+                                frames_skipped=gs.skipped if gs else 0,
+                                **self._clock_stamps(sid),
+                            ),
+                            logits, slots[sid],
+                        )
+                        del self._inflight[sid], self._next_frame[sid]
+                        del self._admitted_tick[sid]
+                        departures += 1
+                span.set_args(departures=departures)
             self._flush_departures()
             self._kick_feeder()
             self._m_frames.inc(len(stepping))
