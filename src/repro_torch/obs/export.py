@@ -33,10 +33,11 @@ TICK_PHASES = ("gate.park", "gate.scan", "admit", "assemble", "step")
 
 # The events only the port emits (the reference's tick has none of them):
 # the tick's post-step spans, the pool's copy and replay, its build instant,
-# the device spans from CUDA events and the host's cost of resolving them.
-# A comparison of the port's trace with the reference's leaves these out.
+# its staging ring's wait for a copy, the device spans from CUDA events and
+# the host's cost of resolving them.  A comparison of the port's trace with
+# the reference's leaves these out.
 PORT_EVENTS = ("advance", "flush", "pool.upload", "pool.replay", "pool.build",
-               "dev.upload", "dev.replay", "obs.resolve")
+               "pool.stage_wait", "dev.upload", "dev.replay", "obs.resolve")
 
 SERVING_PID = 1
 SIM_PID = 100

@@ -76,7 +76,7 @@ import torch
 from repro_torch.obs.metrics import MetricsRegistry
 from repro_torch.obs.tracer import NULL_TRACER
 from repro_torch.serving.gating import ActivityGate
-from repro_torch.serving.pool import SessionPool, host_frame
+from repro_torch.serving.pool import HostBatch, SessionPool, host_frame
 from repro_torch.serving.scheduler import ContinuousBatcher, StreamRequest, StreamResult
 
 DEFAULT_MAX_POOL = 16
@@ -142,7 +142,7 @@ class FrameFeeder:
     batcher hands back through `copied`; before a buffer is given out for
     refilling, `prefetch` waits on that event, so no host buffer is
     rewritten while a copy from it is in flight.  Without pinning the
-    buffers are plain numpy and the copy is synchronous.
+    buffers are plain host memory and the copy is synchronous.
 
     ``mode``: "thread" (require a thread; fall back to sync only if spawn
     fails), "sync" (always inline), "auto" (try thread, fall back quietly).
@@ -158,11 +158,11 @@ class FrameFeeder:
                 max_workers=1, thread_name_prefix="cutie-feeder"
             )
         self._pending: Optional[Future] = None
-        # (pool_size, frame_shape) -> ([_HostBatch x 2], flip index): the
+        # (pool_size, frame_shape) -> ([HostBatch x 2], flip index): the
         # double buffers, one pair per ladder size the bucket visits
         self._bufs: Dict[Tuple[int, Tuple[int, ...]], list] = {}
-        self._filling: Optional[_HostBatch] = None  # the buffer `_pending` fills
-        self._taken: Optional[_HostBatch] = None    # handed out by `take`
+        self._filling: Optional[HostBatch] = None  # the buffer `_pending` fills
+        self._taken: Optional[HostBatch] = None    # handed out by `take`
         self._threaded = self._executor is not None
         # fill spans carry no track, so they land on the lane of the
         # thread that ran the fill — the cutie-feeder thread when threaded
@@ -181,11 +181,11 @@ class FrameFeeder:
         """False once running in sync-fallback mode."""
         return self._threaded
 
-    def _buffers(self, pool_size: int, frame_shape: Tuple[int, ...]) -> "_HostBatch":
+    def _buffers(self, pool_size: int, frame_shape: Tuple[int, ...]) -> "HostBatch":
         key = (pool_size, tuple(frame_shape))
         entry = self._bufs.get(key)
         if entry is None:
-            pair = [_HostBatch(pool_size, frame_shape, self.pin_memory) for _ in range(2)]
+            pair = [HostBatch(pool_size, frame_shape, self.pin_memory) for _ in range(2)]
             entry = self._bufs[key] = [pair, 0]
         pair, flip = entry
         entry[1] = flip ^ 1
@@ -263,24 +263,6 @@ class FrameFeeder:
         if self._executor is not None:
             self._executor.shutdown(wait=True)
             self._executor = None
-
-
-class _HostBatch:
-    """One of a feeder's double buffers: the ``(batch, active)`` numpy
-    arrays the fill writes — views of pinned tensors when pinned — and the
-    event of the last copy from them to the card still to be waited on."""
-
-    def __init__(self, pool_size: int, frame_shape: Tuple[int, ...], pin: bool):
-        shapes = ((pool_size, *frame_shape), (pool_size,))
-        if pin:
-            self.pinned = (torch.zeros(shapes[0], dtype=torch.float32, pin_memory=True),
-                           torch.zeros(shapes[1], dtype=torch.bool, pin_memory=True))
-            self.batch, self.active = (t.numpy() for t in self.pinned)
-        else:
-            self.pinned = None
-            self.batch = np.zeros(shapes[0], np.float32)
-            self.active = np.zeros(shapes[1], bool)
-        self.copied = None
 
 
 class NetBucket:

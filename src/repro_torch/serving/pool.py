@@ -41,17 +41,28 @@ backend)``, a ``.device`` and a ``.graph`` with ``name`` / ``is_temporal`` /
 `DeployedProgram`, or a `repro_torch.artifact.LoadedProgram` whose ``.graph``
 is the artifact's `ProgramInfo` header.
 
-Frames reach the card from host memory: a batch in pinned memory (the
-fleet feeder's double buffers) is copied without blocking and an event
-marks when the copy is done (`last_upload`); any other batch is copied
-synchronously.  `step_prepared` returns a new logits tensor every tick.
+Frames reach the card from host memory: a batch in pinned memory is
+copied without blocking and an event marks when the copy is done
+(`last_upload`); any other batch is copied synchronously.  `stage`
+assembles a tick's batch into the pool's own staging ring: two `HostBatch`
+pairs, pinned on a card (plain host tensors elsewhere), made on first use
+and alternating per tick.  A pair is rewritten only once the event of the
+last copy from it has completed, and only the lanes it wrote last time that
+get no frame now are zeroed, so what it holds equals `prepare`'s fresh
+arrays.  `step` and `ContinuousBatcher` assemble through it; a fleet
+feeder's pinned double buffers (also `HostBatch` pairs) and a caller's own
+buffers go through `prepare`.  `step_prepared` returns a new logits tensor
+every tick.
 
 **Tracing.**  Under the bound tracer's ``pool.step`` span, ``pool.upload``
-(args ``bytes``, ``pinned``) covers the batch's copy — a wait for the
-stream's earlier work, the previous replay, when the batch is pageable —
-and ``pool.replay`` (arg ``k1``: the K1 launches the replays hold, from
+(args ``bytes``, ``pinned``, and ``staged``: the batch is a pair of the
+pool's ring) covers the batch's copy — a wait for the stream's earlier
+work, the previous replay, when the batch is pageable — and ``pool.replay``
+(arg ``k1``: the K1 launches the replays hold, from
 `CapturedStep.k1_per_replay`, 0 on the tick that builds the step) the
 blocks' steps and the concatenation, host enqueue only.  An instant
+``pool.stage_wait`` (arg ``waited_us``) marks a `stage` that had to wait
+for a ring pair's earlier copy to land.  An instant
 ``pool.build`` (arg ``capture_s``) marks each block's build of its step.
 With an enabled wall-clock tracer on a CUDA pool, `bind_tracer` binds a
 `repro_torch.obs.device.DeviceSpans`: timing events before the upload,
@@ -77,6 +88,7 @@ block on another device than the program's runs a copy of it there
 """
 from __future__ import annotations
 
+import time
 from typing import Dict, List, Mapping, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -101,6 +113,26 @@ def host_frame(frame) -> np.ndarray:
     if isinstance(frame, torch.Tensor):
         frame = frame.detach().cpu().numpy()
     return np.asarray(frame, np.float32)
+
+
+class HostBatch:
+    """A host ``(batch, active)`` pair that a tick is assembled into — a
+    pair of a pool's staging ring or of a fleet feeder's double buffers:
+    ``tensors``, pinned when ``pin`` (copies to a card then do not block),
+    and their numpy views ``batch`` / ``active``, which the host writes;
+    ``copied``, the event(s) of the last copy from them to the card, which
+    must have completed before the host rewrites them (None: nothing to
+    wait for); ``lanes``, the slots the pool's last `SessionPool.stage` into them
+    wrote."""
+
+    def __init__(self, pool_size: int, frame_shape: Tuple[int, ...], pin: bool):
+        self.tensors = (
+            torch.zeros((pool_size, *frame_shape), dtype=torch.float32, pin_memory=pin),
+            torch.zeros((pool_size,), dtype=torch.bool, pin_memory=pin))
+        self.batch, self.active = (t.numpy() for t in self.tensors)
+        self.pinned = pin
+        self.copied = None
+        self.lanes: List[int] = []
 
 
 class PoolFullError(RuntimeError):
@@ -192,7 +224,10 @@ class _Block:
 
 
 class _Events(tuple):
-    """The events of one upload to several devices."""
+    """The events of one upload, one per device of the pool."""
+
+    def query(self) -> bool:
+        return all(event.query() for event in self)
 
     def synchronize(self) -> None:
         for event in self:
@@ -235,8 +270,12 @@ class SessionPool:
                    backend, jit, self.frame_shape)
             for i, dev in enumerate(devices)
         ]
-        # the event(s) after the last non-blocking upload (None: it was synchronous)
-        self.last_upload = None
+        self._devices = list(dict.fromkeys(b.device for b in self._blocks))
+        # the events after the last non-blocking upload (None: it was synchronous)
+        self.last_upload: Optional[_Events] = None
+        # the staging ring (`stage`): two HostBatch pairs once used, the next one's index
+        self._ring: List[HostBatch] = []
+        self._flip = 0
         self._slots: List[Optional[str]] = [None] * pool_size
         self._slot_of: Dict[str, int] = {}
         # observability: NULL_TRACER when tracing is off (no-op span, no
@@ -323,7 +362,7 @@ class SessionPool:
         or tensors) into a ``[P, *frame_shape]`` float32 batch and a ``[P]``
         bool active mask.  Pure numpy, no device work.  ``out_batch`` /
         ``out_active`` reuse caller-owned buffers (the feeder's pinned
-        double buffers) instead of allocating."""
+        double buffers), zero-filled whole, instead of allocating."""
         for sid in frames:
             self._require(sid)
         if out_batch is None:
@@ -334,6 +373,44 @@ class SessionPool:
             out_active = np.zeros((self.pool_size,), bool)
         else:
             out_active.fill(False)
+        self._scatter(frames, out_batch, out_active)
+        return out_batch, out_active
+
+    def stage(self, frames: Mapping[str, object]) -> Tuple[np.ndarray, np.ndarray]:
+        """`prepare` into the next pair of the pool's staging ring (module
+        docstring): the same ``(batch, active)`` values, in arrays the pool
+        owns and rewrites two stagings later.  Waits, as an instant
+        ``pool.stage_wait``, if the pair's last copy to the card is still
+        in flight; zeroes only the lanes the pair wrote last time that get
+        no frame now.  `step_prepared` copies a staged pair without
+        blocking where it is pinned."""
+        slots = [self._slot_of[self._require(sid)] for sid in frames]
+        pair = self._next_pair()
+        stale = sorted(set(pair.lanes).difference(slots))
+        if stale:
+            pair.batch[stale] = 0.0
+            pair.active[stale] = False
+        pair.lanes = slots  # before the scatter: a frame it rejects leaves no lane unlisted
+        self._scatter(frames, pair.batch, pair.active)
+        return pair.batch, pair.active
+
+    def _next_pair(self) -> HostBatch:
+        """The ring's next pair, once the last copy from it has landed."""
+        if not self._ring:
+            pin = self.device.type == "cuda"
+            self._ring = [HostBatch(self.pool_size, self.frame_shape, pin) for _ in range(2)]
+        pair = self._ring[self._flip]
+        self._flip ^= 1
+        if pair.copied is not None and not pair.copied.query():
+            t0 = time.perf_counter_ns()
+            pair.copied.synchronize()
+            self.tracer.instant("pool.stage_wait", track=self.track,
+                                waited_us=(time.perf_counter_ns() - t0) / 1e3)
+        return pair
+
+    def _scatter(self, frames: Mapping[str, object], batch: np.ndarray,
+                 active: np.ndarray) -> None:
+        """Each admitted stream's frame into its slot's lane, marked active."""
         for sid, f in frames.items():
             f = host_frame(f)
             if f.shape == (1, *self.frame_shape):
@@ -342,46 +419,55 @@ class SessionPool:
                 raise ValueError(
                     f"stream {sid!r}: frame shape {f.shape} != {self.frame_shape}"
                 )
-            out_batch[self._slot_of[sid]] = f
-            out_active[self._slot_of[sid]] = True
-        return out_batch, out_active
+            batch[self._slot_of[sid]] = f
+            active[self._slot_of[sid]] = True
 
     def _upload(self, batch, active) -> None:
         """Copy a host ``(batch, active)`` pair into the static device
-        inputs: without blocking from pinned memory (recording
-        `last_upload`), synchronously otherwise."""
+        inputs: without blocking from pinned memory, recording an event on
+        each device's stream after the copy (`last_upload`; a pair of the
+        staging ring keeps its events as ``copied`` and records them again
+        at its next upload), synchronously otherwise."""
         with self.tracer.span("pool.upload", track=self.track) as span:
-            src_b, src_a = torch.as_tensor(batch), torch.as_tensor(active)
-            want = (self.pool_size, *self.frame_shape)
-            if tuple(src_b.shape) != want or tuple(src_a.shape) != (self.pool_size,):
-                raise ValueError(
-                    f"batch {tuple(src_b.shape)} / active {tuple(src_a.shape)} do not "
-                    f"fit the pool's {want} / ({self.pool_size},)"
-                )
-            pinned = (self.device.type == "cuda" and src_b.is_pinned()
-                      and src_a.is_pinned())
-            span.set_args(bytes=src_b.nbytes + src_a.nbytes, pinned=pinned)
+            pair = next((p for p in self._ring if batch is p.batch and active is p.active),
+                        None)
+            if pair is not None:
+                (src_b, src_a), pinned = pair.tensors, pair.pinned
+            else:
+                src_b, src_a = torch.as_tensor(batch), torch.as_tensor(active)
+                want = (self.pool_size, *self.frame_shape)
+                if tuple(src_b.shape) != want or tuple(src_a.shape) != (self.pool_size,):
+                    raise ValueError(
+                        f"batch {tuple(src_b.shape)} / active {tuple(src_a.shape)} do not "
+                        f"fit the pool's {want} / ({self.pool_size},)"
+                    )
+                pinned = (self.device.type == "cuda" and src_b.is_pinned()
+                          and src_a.is_pinned())
+            span.set_args(bytes=src_b.nbytes + src_a.nbytes, pinned=pinned,
+                          staged=pair is not None)
             self._device_spans.mark(0)
             for b in self._blocks:
                 b.frames.copy_(src_b[b.lo:b.lo + b.size], non_blocking=pinned)
                 b.active.copy_(src_a[b.lo:b.lo + b.size], non_blocking=pinned)
             self.last_upload = None
             if pinned:
-                events = []
-                for dev in dict.fromkeys(b.device for b in self._blocks):
-                    with torch.cuda.device(dev):
-                        events.append(torch.cuda.Event())
-                        events[-1].record()
-                self.last_upload = events[0] if len(events) == 1 else _Events(events)
+                events = pair.copied if pair is not None else None
+                if events is None:
+                    events = _Events(torch.cuda.Event() for _ in self._devices)
+                for event, dev in zip(events, self._devices):
+                    event.record(torch.cuda.current_stream(dev))
+                self.last_upload = events
+            if pair is not None:
+                pair.copied = self.last_upload
 
     def step_prepared(self, batch: np.ndarray, active: np.ndarray) -> torch.Tensor:
         """The device half of a tick: copy an assembled ``(batch, active)``
-        pair (see `prepare`) into the static inputs, run the step (a graph
-        replay once captured) of every block, and return the full ``[P,
-        n_classes]`` logits as a new tensor, in slot order on the first
-        block's device — callers map slots back to stream ids.  A pageable
-        host buffer has been read when this returns; a pinned one once
-        `last_upload` has completed."""
+        pair (see `prepare` and `stage`) into the static inputs, run the
+        step (a graph replay once captured) of every block, and return the
+        full ``[P, n_classes]`` logits as a new tensor, in slot order on the
+        first block's device — callers map slots back to stream ids.  A
+        pageable host buffer has been read when this returns; a pinned one
+        once `last_upload` has completed."""
         tr, track, timed = self.tracer, self.track, self._device_spans
         with tr.span("pool.step", track=track, pool_size=self.pool_size):
             timed.resolve()
@@ -407,7 +493,7 @@ class SessionPool:
         (a leading length-1 batch axis is accepted and squeezed); streams
         that skip this tick keep their ring frozen via the slot mask.
         Returns per-stream logits for exactly the streams that stepped."""
-        logits = self.step_prepared(*self.prepare(frames))
+        logits = self.step_prepared(*self.stage(frames))
         return {sid: logits[self._slot_of[sid]] for sid in frames}
 
     def bind_tracer(self, tracer, track: Optional[str] = None) -> None:
@@ -424,7 +510,7 @@ class SessionPool:
         self.tracer, self.track = tracer, track
         self._device_spans = NULL_DEVICE_SPANS
         if records_device_time(tracer, self.device):
-            devices = list(dict.fromkeys(b.device for b in self._blocks))
+            devices = self._devices
             lanes = ([f"{track}.device"] if len(devices) == 1
                      else [f"{track}.device{i}" for i in range(len(devices))])
             self._device_spans = DeviceSpans(tracer, devices, lanes,

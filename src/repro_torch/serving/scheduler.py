@@ -17,11 +17,12 @@ Ticks are logical time: a request with ``arrival=k`` is admissible from
 tick k onward.  The batcher records per-tick occupancy and per-tick host
 latency (tagged with the pool size it ran at).  On a CUDA pool a tick only
 *enqueues* device work — the frame batch's copy, one replay of the pool's
-captured step, one copy of its logits — apart from two waits: a batch in
-pageable memory is copied to the card synchronously (a fleet feeder's
-pinned batch is not), and where streams depart their logits reach the host
-in ONE device-to-host copy per tick — so a tick's host latency is enqueue
-time plus those waits.
+captured step, one copy of its logits — apart from two waits: where streams
+depart their logits reach the host in ONE device-to-host copy per tick, and
+the batch is assembled into the pool's pinned staging ring (`SessionPool.stage`;
+a fleet feeder's pinned buffer when it has one), whose pair waits for its
+copy of two ticks ago where that has not landed — so a tick's host latency
+is enqueue time plus those waits.
 
 Fleet hooks (used by `repro_torch.serving.fleet`, inert otherwise):
 
@@ -50,7 +51,7 @@ park / wake instants and the spans that cover a tick: ``tick`` around it,
 ``gate.park`` / ``gate.scan``, ``admit``, ``assemble`` and ``advance`` (the
 per-slot outputs, cursor advance, evictions and departures; arg
 ``departures``) are host work; ``step`` holds the pool's ``pool.step``,
-whose ``pool.upload`` waits for the previous replay when the batch is
+whose ``pool.upload`` waits for the previous replay only when the batch is
 pageable and whose ``pool.replay`` only enqueues; ``flush`` (arg ``rows``;
 on ticks with departures only) is the departures' device-to-host copy and
 its wait for this tick's replay.  On a CUDA pool under a wall-clock tracer
@@ -480,10 +481,10 @@ class ContinuousBatcher:
     def _assemble(self) -> Tuple[np.ndarray, np.ndarray]:
         """The tick's (batch, active) pair: the feeder's prefetched buffer
         when one is valid (patched for admissions/cancellations since the
-        prefetch), else a synchronous `pool.prepare`."""
+        prefetch), else the pool's staging ring (`SessionPool.stage`)."""
         prefetch = self.feeder.take() if self.feeder is not None else None
         if prefetch is None:
-            return self.pool.prepare({
+            return self.pool.stage({
                 sid: req.frames[self._next_frame[sid]]
                 for sid, req in self._inflight.items()
             })

@@ -16,10 +16,11 @@ On the CPU:
   * a pool off the card binds no device recorder; the structural check
     compares a wall-clock trace to the nanosecond.
 
-On the card (``gpu``): a captured pool of 8 over 50 ticks, whose device
-spans start no earlier than the host spans that launched them, end before
-the departures' flush that waits for them, and hold each replay's kernels
-as the profiler records them.  This file imports no JAX.
+On the card (``gpu``): a captured pool of 8 over 50 ticks, whose batches
+are staged in its pinned ring (``pool.upload`` with ``pinned`` and
+``staged``), whose device spans start no earlier than the host spans that
+launched them, end before the departures' flush that waits for them, and
+hold each replay's kernels as the profiler records them.  This file imports no JAX.
 """
 from __future__ import annotations
 
@@ -73,7 +74,7 @@ def _serve(deployed, tracer, n=3, frames=3, pool=2, gate=None):
 
 def _tick(t0, k, streams, queued, departures, first=False):
     """One stepping tick of the tiny pool of 2 under the tick clock."""
-    upload = ("X", "pool.upload", t0 + 9, 1, {"bytes": 258, "pinned": False})
+    upload = ("X", "pool.upload", t0 + 9, 1, {"bytes": 258, "pinned": False, "staged": True})
     if first:  # the build: eager on the CPU, no capture time
         body = [upload, ("i", "pool.build", t0 + 12, 0, {"capture_s": None}),
                 ("X", "pool.replay", t0 + 11, 2, {"k1": 0})]
@@ -453,6 +454,8 @@ def test_device_spans_of_a_captured_pool_on_the_card(tmp_path):
     flushes = _host_spans(ev, "flush")
     assert len(dev_up) == len(dev_rep) == len(host_up) == len(host_rep) == 50
     assert batcher.pool.captured and tracer.dropped == 0
+    # every batch came from the pool's pinned staging ring, copied without blocking
+    assert all(e.args["pinned"] and e.args["staged"] for e in ev if e.name == "pool.upload")
     for (ds, _), (hs, _) in zip(dev_up, host_up):
         assert ds >= hs - TOL_NS
     for (ds, _), (hs, _) in zip(dev_rep, host_rep):

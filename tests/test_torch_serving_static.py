@@ -1,7 +1,8 @@
 """The serving step over static tensors — `SessionPool(jit=...)`,
-`StreamSession(jit=...)`, `prepare(out_batch, out_active)`, the in-place
-slot surgery, the feeder's copy events and `stream_tcn_apply` — held
-against the reference on the CPU.
+`StreamSession(jit=...)`, `prepare(out_batch, out_active)`, the pool's
+staging ring (`stage`), the in-place slot surgery, the feeder's and the
+ring's copy events and `stream_tcn_apply` — held against the reference on
+the CPU.
 
 The pool and the session keep their state in tensors whose addresses never
 change (on the card a captured CUDA graph reads and writes them there); on
@@ -30,6 +31,7 @@ from repro.serving import masking as jmask
 from repro_torch import api as tapi
 from repro_torch import artifact, convert
 from repro_torch.capture import CapturedStep
+from repro_torch.obs import Tracer
 from repro_torch.core import TCNStream, stream_tcn_apply
 from repro_torch.serving import (
     ContinuousBatcher,
@@ -233,6 +235,79 @@ def test_step_prepared_rejects_a_misshaped_batch(nano):
 
 
 # ---------------------------------------------------------------------------
+# the pool's staging ring
+# ---------------------------------------------------------------------------
+
+def test_staged_batch_equals_prepare_through_churn_and_readmission(nano):
+    """`stage` hands out the ring's two pairs in turn, and each holds what
+    `prepare` assembles from scratch: a lane that went idle reads zero and
+    inactive, and a slot re-admitted to another stream carries its frame."""
+    _, dep = nano
+    frames = clips_for(dep.graph, 5, 8, seed=11)
+    pool = SessionPool(dep, 4, backend="fused")
+    ticks = [  # (evicted, admitted, the streams that step)
+        ([], ["a", "b", "c"], "abc"),
+        ([], ["d"], "abd"),      # c skips a tick: its lane idles
+        (["a"], [], "bcd"),
+        ([], ["e"], "ce"),       # e takes a's slot; b and d idle
+        (["c", "e"], [], "bd"),
+        ([], ["a"], "a"),        # a back, in the slot e left
+        ([], [], ""),
+        ([], [], "abd"),
+    ]
+    handed = []
+    for k, (evicted, admitted, stepping) in enumerate(ticks):
+        for sid in evicted:
+            pool.evict(sid)
+        for sid in admitted:
+            pool.admit(sid)
+        batch = {sid: frames["abcde".index(sid), k] for sid in stepping}
+        if "b" in batch:  # a tensor with a leading axis, as `prepare` takes it
+            batch["b"] = torch.from_numpy(batch["b"][None])
+        got_b, got_a = pool.stage(batch)
+        want_b, want_a = pool.prepare(batch)
+        exact(got_b, want_b); exact(got_a, want_a)
+        idle = sorted(set(range(4)) - {pool.slot_of(sid) for sid in stepping})
+        assert not got_a[idle].any() and not got_b[idle].any()
+        own_b = np.full_like(want_b, 7.0)  # the caller's buffers stay the caller's
+        assert pool.prepare(batch, out_batch=own_b, out_active=np.ones(4, bool))[0] is own_b
+        exact(own_b, want_b)
+        pool.step_prepared(got_b, got_a)
+        handed.append(got_b)
+    assert not any(p.pinned for p in pool._ring) and pool.last_upload is None
+    assert all(b is pool._ring[k % 2].batch for k, b in enumerate(handed))
+    # a frame the scatter rejects leaves the pair it was writing consistent
+    with pytest.raises(ValueError, match="frame shape"):
+        pool.stage({"a": frames[0, 0], "b": np.zeros((3, 3), np.float32)})
+    pool.stage({"d": frames[3, 1]})
+    for batch in ({"d": frames[3, 2]}, {"a": frames[0, 3], "b": frames[1, 3]}):
+        got_b, got_a = pool.stage(batch)
+        want_b, want_a = pool.prepare(batch)
+        exact(got_b, want_b); exact(got_a, want_a)
+
+
+def test_stage_waits_for_a_pairs_copy_before_rewriting_it(nano):
+    _, dep = nano
+    frames = clips_for(dep.graph, 1, 4, seed=12)
+    tracer = Tracer(clock="tick")
+    pool = SessionPool(dep, 2, tracer=tracer)
+    pool.admit("a")
+    first, _ = pool.stage({"a": frames[0, 0]})
+    pool._ring[0].copied = landed = _Event(done=True)
+    pool.stage({"a": frames[0, 1]})
+    pool._ring[1].copied = in_flight = _Event(done=False)
+    again, _ = pool.stage({"a": frames[0, 2]})  # the first pair: its copy has landed
+    assert again is first and landed.waited == 0
+    assert not [e for e in tracer.events() if e.name == "pool.stage_wait"]
+    pool.stage({"a": frames[0, 3]})  # the second: waits for its copy, once
+    assert in_flight.waited == 1
+    pool.stage({"a": frames[0, 0]}); pool.stage({"a": frames[0, 1]})  # both landed now
+    assert (landed.waited, in_flight.waited) == (0, 1)
+    waits = [e for e in tracer.events() if e.name == "pool.stage_wait"]
+    assert len(waits) == 1 and waits[0].phase == "i" and waits[0].args["waited_us"] >= 0
+
+
+# ---------------------------------------------------------------------------
 # jit=True / jit=False against the reference pool, with churn and migration
 # ---------------------------------------------------------------------------
 
@@ -376,11 +451,17 @@ def test_captured_step_runs_eagerly_off_the_card():
 
 
 class _Event:
-    def __init__(self):
-        self.waited = 0
+    """A stand-in for a copy's CUDA event: landed or not, and waited on."""
+
+    def __init__(self, done=False):
+        self.done, self.waited = done, 0
+
+    def query(self):
+        return self.done
 
     def synchronize(self):
         self.waited += 1
+        self.done = True
 
 
 def test_feeder_waits_on_a_buffers_copy_event_before_refilling_it():
@@ -492,3 +573,59 @@ def test_dead_sessions_collected_during_a_capture_do_not_break_it():
     finally:
         gc.set_threshold(*threshold)
     assert gc.isenabled()
+
+
+@pytest.mark.gpu
+def test_staged_batcher_equals_a_pageable_one_on_the_card():
+    """A churned batcher on a CUDA pool assembles through the pinned ring
+    and copies without blocking; its logits equal, bit for bit, the same
+    run's through pageable `prepare` and a synchronous copy."""
+    dep, _ = _cuda_pair("dvs_cnn_tcn_smoke")
+    clips = clips_for(dep.graph, 9, 8, seed=13)
+    out, uploads = {}, {}
+    for staged in (True, False):
+        tracer = Tracer(clock="tick")
+        pool = dep.serve(3, backend="fused", tracer=tracer)
+        if not staged:
+            pool.stage = pool.prepare
+        bat = ContinuousBatcher(pool, tracer=tracer)
+        for i in range(9):  # 2-8 frames, more streams than slots: slots refill
+            bat.submit(StreamRequest(f"s{i}", clips[i, :2 + (5 * i) % 7], arrival=i // 2))
+        out[staged] = {r.stream_id: r.logits for r in bat.run()}
+        uploads[staged] = {tuple(sorted(e.args.items())) for e in tracer.events()
+                           if e.name == "pool.upload"}
+    assert out[True].keys() == out[False].keys() and len(out[True]) == 9
+    for sid, logits in out[False].items():
+        np.testing.assert_array_equal(out[True][sid], logits)
+    nbytes = 3 * int(np.prod(dep.graph.input_hw)) * dep.graph.input_ch * 4 + 3
+    assert uploads[True] == {(("bytes", nbytes), ("pinned", True), ("staged", True))}
+    assert uploads[False] == {(("bytes", nbytes), ("pinned", False), ("staged", False))}
+
+
+@pytest.mark.gpu
+def test_a_staged_pair_is_not_rewritten_while_its_copy_is_in_flight():
+    """The stream is stalled before a tick's copy; the host stages the next
+    two ticks without a synchronize, the second into the stalled copy's
+    pair, which must wait for it.  Logits equal a run synchronized after
+    every tick."""
+    dep, frames = _cuda_pair("dvs_cnn_tcn_smoke")
+    out, waits = {}, {}
+    for stall in (True, False):
+        tracer = Tracer(clock="tick")
+        pool = dep.serve(4, backend="fused", tracer=tracer)
+        for i in range(4):
+            pool.admit(f"s{i}")
+        ticks = []
+        for t in range(6):
+            if stall and t in (1, 4):
+                torch.cuda._sleep(100_000_000)  # tens of ms of the stream's time
+            ticks.append(pool.step({f"s{i}": frames[i, t] for i in range(4) if (t + i) % 5}))
+            if not stall:
+                torch.cuda.synchronize()
+        out[stall] = [{sid: v.cpu().numpy() for sid, v in tick.items()} for tick in ticks]
+        waits[stall] = sum(e.name == "pool.stage_wait" for e in tracer.events())
+    assert waits[True] >= 1 and waits[False] == 0
+    for got, want in zip(out[True], out[False]):
+        assert got.keys() == want.keys()
+        for sid in want:
+            np.testing.assert_array_equal(got[sid], want[sid])
