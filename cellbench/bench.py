@@ -1,29 +1,32 @@
 """One run of one cell: set-up, warm-up, the measured window, the check.
 
-The system under test is the port's serving stack as ``launch/serve.py``
-wires it: ``ContinuousBatcher`` (no feeder; an ``ActivityGate`` where the mix
-has one; ``NULL_TRACER`` untraced, a ``repro_torch.obs.Tracer`` traced) over
-the ``SessionPool`` that ``DeployedProgram.serve(pool, backend="fused")``
-builds, whose step is captured once as a CUDA graph and replayed every tick.
-The program is the registry's net, checked against the configuration's
-sizes, quantized by the program from the benchmark's float weights and
-calibration frames.
+The system under test is the configuration's ``system``, the module
+``systems/<system>.py`` (``stream_pool``: the port's serving stack over a
+captured pool step), and the check's plain reference is its ``reference``,
+``reference/<reference>.py``.  This module is the part of a run that any
+system shares.
 
 Set-up (``setup_s``, from process start to the window's first tick) makes
-the weights on the device from the seed in one call, draws the frame bank,
-quantizes, builds the pool and batcher, and runs a warm-up of ``pool + 4``
-clips of the mix through the same path until it drains: the first tick
-builds K1 and captures the step, and admission, eviction, departures and
-the gate's park and wake each run once.  The window then runs the mix's loop
-(``loops/<loop>.py``) for ``seconds``; it ends in a synchronise.  Clips due
-in the window that are still in flight are served to the end afterwards (at
-most a minute), so each has its answer and its latency counts the wait.
+the weights on the device from the seed in one call, draws the frame bank and
+the calibration frames, has the system build itself (the program quantized
+from those weights and frames) and warm up every shape the mix uses.  The
+window then runs the mix's loop (``loops/<loop>.py``) for ``seconds``; it
+ends in a synchronise.  Clips due in the window that are still in flight are
+served to the end afterwards (at most a minute), so each has its answer and
+its latency counts the wait.  The system keeps on the way what its check
+reads, and once the window has closed and the system is freed, compares its
+answers with the reference's.
 
-For the check the window also counts, from the keys of each tick's output,
-the frames every clip stepped, and for one clip in ``PROBE_EVERY`` (chosen
-from the seed and the clip's id) keeps the logits of two of its frames — one
-within its first ``tcn_steps``, whose window holds zero history, and one
-anywhere in the clip — copied on the device into a buffer made in set-up.
+A system module has ``build(cell, params, calib, bank, device, tracer)``,
+whose object has ``batch`` (frames one step holds), ``pending``,
+``tick_index``, ``warm_up(seed)``, ``watch(seed)`` (from here on keep what
+the check reads), ``submit(clip)``, ``tick()`` -> ``(host clock when its
+outputs were on hand, frames stepped, [(clip id, result)])`` and
+``answers(records)``; ``compare(cell, params, calib, answers, seed,
+device)`` -> ``(numbers, info)``, against the plain reference that the
+module imports from ``reference/``; and ``control(cell, params, calib, bank,
+seed, device, n)``, the numbers of that reference served in the precision
+below in the program's place.
 """
 from __future__ import annotations
 
@@ -32,20 +35,16 @@ import gc
 import os
 import sys
 import time
-from collections import Counter
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
 from cellbench import check, devtrace, traffic
-from cellbench.reference import cutie
 from cellbench.spec import Cell, load_module
 
 TRACER_CAPACITY = 1 << 22
 DRAIN_S = 60.0
 PROFILE_S = 0.5     # the profiled sub-window: the window's last half second
-PROBE_EVERY = 4     # one clip in four keeps the logits of two of its frames
-PROBE_ROWS = 1 << 15
 
 
 @dataclasses.dataclass
@@ -54,9 +53,7 @@ class ClipRecord:
     due: float                   # host clock: when the clip was due
     submitted: float             # host clock: when the harness submitted it
     done: Optional[float] = None  # host clock: when its logits were on the host
-    result: object = None         # the program's StreamResult
-    steps: int = 0                # frames it stepped, counted from the ticks' outputs
-    probes: List[Tuple[int, np.ndarray]] = dataclasses.field(default_factory=list)
+    result: object = None         # the system's answer (the program's StreamResult)
 
 
 @dataclasses.dataclass
@@ -69,9 +66,10 @@ class RunRecord:
     frames: int                  # frames stepped in the window
     ticks: int
     step_ticks: int
+    batch: int                   # frames one step holds (the system's)
     clips: List[ClipRecord]      # every clip due in the window
     tick_walls: List[float]      # host clock at each tick's start, window and drain
-    tick_base: int               # the batcher's index of tick_walls[0]
+    tick_base: int               # the system's tick index of tick_walls[0]
     spans: Dict[str, List[Tuple[float, float]]]  # traced: name -> [(start, dur)] in the window
     profile: Optional[devtrace.Profile]
 
@@ -87,69 +85,16 @@ class RunRecord:
         return self.cell.traffic
 
 
-class Probes:
-    """The logits of chosen frames, kept on the way for the check.
-
-    A clip is probed when the hash of the seed and its id is a multiple of
-    ``PROBE_EVERY``; it then keeps its step ``early`` (below ``tcn_steps``)
-    and its step ``anywhere``.  Each is copied, on the device and in the
-    tick's stream order, into a row of a buffer made before the window."""
-
-    def __init__(self, seed: int, steps: int, n_classes: int, device, rows: int = PROBE_ROWS):
-        import torch
-
-        self.seed, self.steps = seed, steps
-        self.buf = torch.empty((rows, n_classes), device=device)
-        self.used = 0
-        self.want: Dict[str, Dict[int, int]] = {}   # in flight: id -> {step: row}
-        self.kept: Dict[str, List[Tuple[int, int]]] = {}
-
-    def choose(self, clip: traffic.Clip) -> None:
-        h = traffic.derive(self.seed, "probe/" + clip.stream_id)
-        if h % PROBE_EVERY or self.used + 2 > len(self.buf):
-            return
-        at = {(h >> 8) % min(self.steps, clip.length), (h >> 32) % clip.length}
-        self.want[clip.stream_id] = {s: self.used + i for i, s in enumerate(sorted(at))}
-        self.kept[clip.stream_id] = []
-        self.used += len(at)
-
-    def see(self, out: Dict, steps: Counter) -> None:
-        """After a tick: copy the rows of the probed steps it produced."""
-        done = []
-        for sid, want in self.want.items():
-            logits = out.get(sid)
-            if logits is None:
-                continue
-            step = steps[sid] - 1
-            row = want.pop(step, None)
-            if row is not None:
-                self.buf[row].copy_(logits)
-                self.kept[sid].append((step, row))
-                if not want:
-                    done.append(sid)
-        for sid in done:
-            del self.want[sid]
-
-    def read(self, records: Dict[str, "ClipRecord"]) -> None:
-        """After the window: hand each record its probes' logits."""
-        host = self.buf[:self.used].cpu().numpy()
-        for sid, kept in self.kept.items():
-            records[sid].probes = [(step, host[row]) for step, row in kept]
-
-
 class Window:
     """The measured stretch of a run: ticks, submissions, departures."""
 
-    def __init__(self, batcher, bank: traffic.Bank, *, tracer=None,
-                 seconds: float = 0.0, k1_patterns=(), probes: Optional[Probes] = None):
-        self.batcher, self.bank = batcher, bank
+    def __init__(self, system, *, tracer=None, seconds: float = 0.0, k1_patterns=()):
+        self.system = system
         self.tracer = tracer
-        self.probes = probes
-        self.steps: Counter = Counter()
         self.records: Dict[str, ClipRecord] = {}
         self.order: List[ClipRecord] = []
         self.tick_walls: List[float] = []
-        self.tick_base = batcher.tick_index
+        self.tick_base = system.tick_index
         self.frames = self.ticks = self.step_ticks = 0
         self.t0 = self.t_close = None
         self.window_s = 0.0
@@ -166,7 +111,7 @@ class Window:
     # -- clock -------------------------------------------------------------
 
     def open(self) -> None:
-        _sync()
+        sync()
         if self.tracer is not None:  # aligns the tracer's clock with the host's
             self._tracer_mark_ns = time.perf_counter_ns()
             self.tracer.instant(devtrace.MARK)
@@ -185,44 +130,29 @@ class Window:
 
     @property
     def pending(self) -> bool:
-        return self.batcher.pending
+        return self.system.pending
 
     # -- traffic -----------------------------------------------------------
 
     def submit(self, clip: traffic.Clip, due: Optional[float] = None) -> ClipRecord:
-        """Hand the clip to the batcher; ``due`` (host clock) defaults to now."""
-        from repro_torch.serving import StreamRequest
-
+        """Hand the clip to the system; ``due`` (host clock) defaults to now."""
         now = time.perf_counter()
         rec = ClipRecord(clip, now if due is None else due, now)
         if due is not None:
             self.late.append(now - due)
         self.records[clip.stream_id] = rec
         self.order.append(rec)
-        if self.probes is not None:
-            self.probes.choose(clip)
-        request = StreamRequest(clip.stream_id, self.bank.clip(clip))
-        if self.tracer is None:
-            self.batcher.submit(request)
-        else:  # the harness's own span around its call into the scheduler
-            with self.tracer.span("submit", track=self.batcher.track):
-                self.batcher.submit(request)
+        self.system.submit(clip)
         return rec
 
     def tick(self) -> List[ClipRecord]:
-        """One batcher tick; returns the clips that departed in it."""
-        b = self.batcher
+        """One tick of the system; returns the clips that departed in it."""
         if self.prof_at is not None and self.prof is None and self.t_close is None \
                 and self.elapsed() >= self.prof_at:
             self._profile_start()
         self.tick_walls.append(time.perf_counter())
-        out = b.tick()
-        done = time.perf_counter()
-        self.steps.update(out.keys())
-        if self.probes is not None and self.probes.want:
-            self.probes.see(out, self.steps)
+        done, n, results = self.system.tick()
         if self.t_close is None:
-            n = len(out)
             self.ticks += 1
             self.frames += n
             self.step_ticks += n > 0
@@ -234,21 +164,16 @@ class Window:
                 self.prof_counts[0] += n > 0
                 self.prof_counts[1] += n
         departed = []
-        if b.results:
-            for r in b.results:
-                rec = self.records[r.stream_id]
-                rec.done, rec.result = done, r
-                rec.steps = self.steps.pop(r.stream_id, 0)
-                if self.probes is not None:
-                    self.probes.want.pop(r.stream_id, None)
-                departed.append(rec)
-            b.results.clear()  # a long-running server drains what it has read
+        for sid, result in results:
+            rec = self.records[sid]
+            rec.done, rec.result = done, result
+            departed.append(rec)
         return departed
 
     def close(self) -> None:
         """End the window: synchronise, stop the clock (and the profiler,
         whose stop costs time that the window does not see)."""
-        _sync()
+        sync()
         self.t_close = time.perf_counter()
         self.window_s = self.t_close - self.t0
         if self.prof is not None:
@@ -258,9 +183,9 @@ class Window:
     def drain(self, limit: float = DRAIN_S) -> None:
         """Serve what is in flight to its end (at most ``limit`` seconds)."""
         start = time.perf_counter()
-        while self.batcher.pending and time.perf_counter() - start < limit:
+        while self.system.pending and time.perf_counter() - start < limit:
             self.tick()
-        _sync()
+        sync()
 
     # -- the profiled sub-window ---------------------------------------------
 
@@ -275,7 +200,7 @@ class Window:
         # launched on an idle card at a known host time
         act = ProfilerActivity.CUDA if on_card else ProfilerActivity.CPU
         marker = torch.zeros(1, device="cuda") if on_card else None
-        _sync()
+        sync()
         self.prof = profile(activities=[act])
         self.prof.start()
         if on_card:
@@ -284,7 +209,7 @@ class Window:
         else:
             with record_function(devtrace.MARK):
                 self.prof_mark_ns = time.perf_counter_ns()
-        _sync()
+        sync()
         self._prof_t0 = time.perf_counter()
 
     def profile(self) -> devtrace.Profile:
@@ -297,7 +222,8 @@ class Window:
     def record(self, cell: Cell, setup_s: float, spans=None, profile=None) -> RunRecord:
         """What the metric readers read, once the window has closed."""
         return RunRecord(cell=cell, setup_s=setup_s, window_s=self.window_s, frames=self.frames,
-                         ticks=self.ticks, step_ticks=self.step_ticks, clips=list(self.order),
+                         ticks=self.ticks, step_ticks=self.step_ticks, batch=self.system.batch,
+                         clips=list(self.order),
                          tick_walls=self.tick_walls, tick_base=self.tick_base,
                          spans=spans or {}, profile=profile)
 
@@ -341,18 +267,18 @@ def _warm_profiler(dev) -> None:
     acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if dev.type == "cuda" else [])
     with profile(activities=acts) as prof:
         torch.ones(8, device=dev).add_(1)
-        _sync()
+        sync()
     prof.events()
 
 
-def _sync() -> None:
+def sync() -> None:
     import torch
 
     if torch.cuda.is_available() and torch.cuda.is_initialized():
         torch.cuda.synchronize()
 
 
-# -- the system under test ---------------------------------------------------------
+# -- the inputs -------------------------------------------------------------------
 
 def make_params(cfg: Dict, seed: int, device) -> Dict:
     """Float32 weights in the port's layout, Kaiming-normal as the port's
@@ -384,82 +310,38 @@ def make_params(cfg: Dict, seed: int, device) -> Dict:
     return params
 
 
-def check_graph(graph, cfg: Dict) -> None:
-    """The program's graph has exactly the configuration's sizes."""
-    want = {"input_hw": tuple(cfg["input_hw"]), "input_ch": cfg["input_ch"],
-            "n_classes": cfg["n_classes"], "tcn_steps": cfg["tcn_steps"],
-            "act_threshold": cfg["act_threshold"], "weight_nu": cfg["weight_nu"],
-            "qat_per_channel": False}
-    got = {k: getattr(graph, k) for k in want}
-    if got != want:
-        raise ValueError(f"{graph.name}: {got} != the configuration's {want}")
-    fields = {"conv2d": ("c_in", "c_out", "kernel", "stride"), "pool": ("window",),
-              "tcn": ("c_in", "c_out", "kernel", "taps", "dilation"), "fc": ("c_in", "c_out")}
-    layers = [(l.kind, {f: getattr(l, f) for f in fields.get(l.kind, ())}) for l in graph.layers]
-    mine = [(l["kind"], {f: tuple(l[f]) if f == "kernel" else l.get(f, 1)
-                         for f in fields.get(l["kind"], ())}) for l in cfg["layers"]]
-    if layers != mine:
-        raise ValueError(f"{graph.name}: the registry's layers differ from the configuration's")
-
-
-def build_system(cfg: Dict, mix: Dict, params: Dict, calib, tracer=None):
-    """The program's batcher: the registry net quantized from ``params`` and
-    ``calib``, served from a captured pool on the ``fused`` backend."""
-    from repro_torch.api.program import CutieProgram
-    from repro_torch.api.registry import get_graph
-    from repro_torch.serving import ActivityGate, ContinuousBatcher
-
-    graph = get_graph(cfg["registry"])
-    check_graph(graph, cfg)
-    deployed = CutieProgram(graph).quantize(params, calib=calib)
-    pool = deployed.serve(int(mix["pool"]), backend="fused")
-    gate = ActivityGate(**mix["gate"]) if mix.get("gate") else None
-    return ContinuousBatcher(pool, gate=gate, tracer=tracer)
-
-
-def warm_up(batcher, bank: traffic.Bank, mix: Dict, seed: int) -> None:
-    """``pool + 4`` clips of the mix, submitted at once, served to the end."""
-    w = Window(batcher, bank)
-    for clip in traffic.clips(mix, int(mix["pool"]) + 4, bank, seed, "warmup", prefix="w"):
-        w.submit(clip)
-    w.t0 = time.perf_counter()
-    w.drain()
-
-
-# -- one run ----------------------------------------------------------------------
-
 def make_frames(cell: Cell, seed: int, dev):
-    """The mix's frame bank and the calibration clips: the first
-    ``calib_clips`` sequences' first ``tcn_steps`` frames, every one on."""
+    """The mix's frame bank and the calibration frames (`traffic.calibration`)."""
     import torch
 
     cfg = cell.config
     bank = traffic.make_bank(load_module("sources", cfg["frames"]), cfg, cell.traffic, seed, dev)
-    n_cal = int(cfg["calib_clips"])
-    calib = torch.from_numpy(bank.content[:n_cal, :cfg["tcn_steps"]].copy()).to(dev)
+    calib = torch.from_numpy(traffic.calibration(bank, cfg)).to(dev)
     return bank, calib
 
 
 def set_up(cell: Cell, seed: int, dev, tracer=None):
-    """Weights, calibration frames, the frame bank and the warmed-up batcher."""
-    cfg, mix = cell.config, cell.traffic
+    """Weights, calibration frames, the frame bank and the warmed-up system."""
+    cfg = cell.config
     parts, t = {}, time.perf_counter()
 
     def lap(name):
         nonlocal t
-        _sync()
+        sync()
         parts[name], t = time.perf_counter() - t, time.perf_counter()
 
     params = make_params(cfg, seed, dev)
     lap("weights_s")
     bank, calib = make_frames(cell, seed, dev)
     lap("frames_s")
-    batcher = build_system(cfg, mix, params, calib, tracer)
+    system = load_module("systems", cfg["system"]).build(cell, params, calib, bank, dev, tracer)
     lap("quantize_s")
-    warm_up(batcher, bank, mix, seed)
+    system.warm_up(seed)
     lap("warm_up_s")
-    return params, calib, bank, batcher, parts
+    return params, calib, bank, system, parts
 
+
+# -- one run ----------------------------------------------------------------------
 
 def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, *, device="cuda",
              t_start: Optional[float] = None) -> Tuple[Dict, List[str]]:
@@ -471,6 +353,7 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, *, device="cuda
     dev = torch.device(device)
     cfg, mix = cell.config, cell.traffic
     loop = load_module("loops", mix["loop"])
+    kind = load_module("systems", cfg["system"])
 
     tracer = None
     if trace:
@@ -478,7 +361,7 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, *, device="cuda
 
         tracer = Tracer(capacity=TRACER_CAPACITY)
     t_entry = time.perf_counter()
-    params, calib, bank, batcher, parts = set_up(cell, seed, dev, tracer)
+    params, calib, bank, system, parts = set_up(cell, seed, dev, tracer)
     parts = {"start_s": t_entry - t_start, **parts}
     plan = loop.prepare(mix, seconds, bank, seed)
     if tracer is not None:
@@ -486,9 +369,8 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, *, device="cuda
         tracer.clear()
     gc.collect()
     gc.freeze()  # what set-up made is not rescanned by the window's collections
-    probes = Probes(seed, cfg["tcn_steps"], cfg["n_classes"], dev)
-    w = Window(batcher, bank, tracer=tracer, seconds=seconds,
-               k1_patterns=cfg["kernels"]["k1"], probes=probes)
+    system.watch(seed)
+    w = Window(system, tracer=tracer, seconds=seconds, k1_patterns=cfg["kernels"]["k1"])
     w.open()
     setup_s = w.t0 - t_start
     loop.drive(w, plan, mix, seconds)
@@ -509,23 +391,14 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, *, device="cuda
     metrics = read_metrics(record, cell.metrics(trace))
 
     # the check: after the window, with the program's state freed
-    probes.read(w.records)
-    gate = mix.get("gate")
-    answers = [check.Answer(bank.clip(r.clip), r.result.logits, r.steps, r.probes)
-               for r in record.clips if r.result is not None]
+    answers = system.answers(record.clips)
     missing = sum(r.result is None for r in record.clips)
     late, w_close, by_second = w.late, w.t_close, w.frames_by_second
-    del batcher, w, probes
+    del system, w
     gc.collect()
     if dev.type == "cuda":
         torch.cuda.empty_cache()
-    counted = check.count(answers, gate)
-    picked = check.sample([len(a.frames) for a in answers], [bool(a.probes) for a in answers],
-                          seed)
-    tables = cutie.derive(cfg, params, calib)
-    numbers = check.compare(cfg, gate, tables, [answers[i] for i in picked], dev)
-    numbers["frames_mismatch"] = float(counted["mismatch"])
-    numbers["wrong"] = len(counted["wrong"] | {picked[i] for i in numbers["wrong"]})
+    numbers, compared = kind.compare(cell, params, calib, answers, seed, dev)
     numbers["missing"] = float(missing)
     check_s = time.perf_counter() - t_profiled
     checks = check.judge(numbers, cfg["limits"])
@@ -546,8 +419,7 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, *, device="cuda
                                "idle_gaps": devtrace.top(profile.idle_by_label)}
     result["info"] = {
         "window_s": record.window_s, "frames": record.frames, "ticks": record.ticks,
-        "stepping_ticks": record.step_ticks, "answered": len(answers), "compared": len(picked),
-        "probes_compared": numbers["probes"],
+        "stepping_ticks": record.step_ticks, "answered": len(answers), **compared,
         "generator_late_ms_max": max(late, default=0.0) * 1e3,
         "drain_and_profile_s": t_profiled - w_close, "check_s": check_s,
         "setup_parts": parts, "frames_by_second": by_second,

@@ -5,14 +5,16 @@ the program's place, read by the same comparison as a run.
     python3 cellbench/control.py --workload <cell> --seeds 1,2,3 [--device cuda]
 
 For each seed it makes what a run makes (weights, calibration frames, the
-frame bank, the cell's clips), serves 256 of the clips — at their last
-frame and at two probed frames, as a run compares them — with the reference
-in the precision below the configuration's float32 (`reference.cutie`,
-``precision="bf16"``: the scale multiply, the threshold, the pooled mean and
-the classifier's scale), and prints the numbers a run compares against the
-float32 reference, beside the configuration's limits.  The control has to
-come out not correct on every seed.  No window is needed: the comparison
-reads answers, and the control's answers do not depend on timing.
+frame bank), and the configuration's system (``systems/<system>.py``, its
+``control``) serves 256 of the cell's clips — for ``stream_pool`` at their
+last frame and at two probed frames, as a run compares them — with the
+reference in the precision below the configuration's float32
+(``reference/cutie.py``, ``precision="bf16"``: the scale multiply, the
+threshold, the pooled mean and the classifier's scale), and prints the
+numbers a run compares against the float32 reference, beside the
+configuration's limits.  The control has to come out not correct on every
+seed.  No window is needed: the comparison reads answers, and the control's
+answers do not depend on timing.
 """
 import argparse
 import json
@@ -26,37 +28,15 @@ def readings(cell, seed: int, device, n: int = 256):
     """The control's numbers for ``cell`` at ``seed`` (no program involved)."""
     import torch
 
-    from cellbench import bench, check, traffic
-    from cellbench.reference import cutie
+    from cellbench import bench, check
+    from cellbench.spec import load_module
 
-    cfg, mix = cell.config, cell.traffic
+    cfg = cell.config
     dev = torch.device(device)
     params = bench.make_params(cfg, seed, dev)
     bank, calib = bench.make_frames(cell, seed, dev)
-    tables = cutie.derive(cfg, params, calib)
-    gate = mix.get("gate")
-    answers, windows, owners = [], [], []
-    for c in traffic.clips(mix, n, bank, seed, "control"):
-        f = bank.clip(c)
-        a = check.Answer(f, None, 0)
-        kept = check.stepped(f, gate)
-        a.steps = len(kept)
-        # the steps a run compares: the last, an early one and one further in
-        a.probes = [(s, None) for s in sorted({min(3, len(kept) - 1), len(kept) // 2})
-                    ] if kept else []
-        for k, (_, w) in enumerate(check.windows(a, kept, cfg["tcn_steps"])):
-            windows.append(w)
-            owners.append((a, k))
-        answers.append(a)
-    served = check.reference_logits(cfg, tables, windows, dev, precision="bf16")
-    for (a, k), logits in zip(owners, served):
-        if k == 0:
-            a.logits = logits
-        else:
-            a.probes[k - 1] = (a.probes[k - 1][0], logits)
-    numbers = check.compare(cfg, gate, tables, answers, dev)
-    numbers["frames_mismatch"] = float(check.count(answers, gate)["mismatch"])
-    numbers["missing"] = 0.0
+    numbers = load_module("systems", cfg["system"]).control(
+        cell, params, calib, bank, seed, dev, n)
     return check.judge(numbers, cfg["limits"])
 
 

@@ -1,7 +1,7 @@
 """``k1_roofline`` (%): the least time of the conv and TCN layers of a step
-at the pool's batch (`yardstick.k1_bound_s`), times the stepping ticks of
-the profiled sub-window, over the device time of the kernels that carry
-those layers (the configuration's K1 name patterns)."""
+at the system's batch (`yardstick.k1_bound_s` at ``run.batch``), times the
+stepping ticks of the profiled sub-window, over the device time of the
+kernels that carry those layers (the configuration's K1 name patterns)."""
 
 from cellbench import yardstick
 
@@ -10,5 +10,5 @@ def read(run):
     p = run.profile
     if p is None or p.k1_s <= 0 or p.step_ticks == 0:
         return None
-    bound = yardstick.k1_bound_s(run.config, int(run.mix["pool"]))
+    bound = yardstick.k1_bound_s(run.config, run.batch)
     return 100.0 * p.step_ticks * bound / p.k1_s

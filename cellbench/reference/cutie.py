@@ -1,4 +1,4 @@
-"""The plain PyTorch reference of a CUTIE CNN+TCN configuration.
+"""The plain PyTorch reference of a CUTIE configuration: a CNN+TCN, or a CNN classifier.
 
 It imports nothing of the program.  From the benchmark's float weights and
 calibration frames it works out again what the program's set-up derives,
@@ -8,7 +8,8 @@ and then serves a clip the plain way:
   ``t = sign(w) * [|w| > nu * mean|w|]`` and scale ``alpha = mean(|w| : kept)``
   per output channel (per class for the classifier); the batch-norm std of
   each conv and TCN layer from one fake-quantized float32 pass over the
-  calibration clips (per-tensor TWN weights, ternarized activations, the
+  calibration clips ``[B, T, H, W, C]`` (or frames ``[N, H, W, C]`` for a net
+  without a ring; per-tensor TWN weights, ternarized activations, the
   dilated TCN layers through the time-axis wrap of the paper's section 4),
   folded into the per-channel scale ``alpha / (std + 1e-6)``.  This part is a
   frozen copy of the port's arithmetic, op for op, so that the scales come
@@ -17,7 +18,9 @@ and then serves a clip the plain way:
   the ternary weights, times the scale, ternarized at ``|y| > threshold``,
   then subsampled (stride) or 2x2 max-pooled; a spatial mean into the ring's
   feature vector; each TCN layer a causal dilated 1-D convolution over the
-  ordered window with left zero history; the classifier ``(x @ t) * scale``.
+  ordered window with left zero history; the classifier ``(x @ t) * scale``,
+  after the TCN head, or in a spatial classifier after the last maps
+  flattened in ``(H, W, C)`` order.
   Every product is of ternary or dyadic values, so float32 sums are exact.
   ``precision="bf16"`` computes the float32 steps of serving — the scale
   multiply, the threshold, the pooled mean, the classifier's scale — in
@@ -86,10 +89,11 @@ def _ternarize(y, thr):
 
 def _calibration_stds(cfg: Dict, params: Dict, calib: torch.Tensor) -> List[torch.Tensor]:
     """The std of every conv then every TCN layer's output over the calibration
-    clips ``[B, T, H, W, C]``, fake-quantized with per-tensor TWN weights."""
-    nu, thr, steps = cfg["weight_nu"], cfg["act_threshold"], cfg["tcn_steps"]
+    clips ``[B, T, H, W, C]`` (frames ``[N, H, W, C]`` without a ring),
+    fake-quantized with per-tensor TWN weights."""
+    nu, thr, steps = cfg["weight_nu"], cfg["act_threshold"], cfg.get("tcn_steps")
     stds: List[torch.Tensor] = []
-    x = calib.reshape(-1, *calib.shape[2:])
+    x = calib.reshape(-1, *calib.shape[-3:])
     ci = ti = 0
     for layer in cfg["layers"]:
         kind = layer["kind"]
@@ -135,9 +139,9 @@ def _calibration_stds(cfg: Dict, params: Dict, calib: torch.Tensor) -> List[torc
 
 def derive(cfg: Dict, params: Dict, calib: torch.Tensor) -> Dict:
     """The deploy tables from float ``params`` and calibration clips
-    ``[B, T, H, W, C]`` (both on one device): per conv and TCN layer the
-    ternary weights and the folded per-channel scale; the classifier's
-    ternary weights and per-class scale."""
+    ``[B, T, H, W, C]`` or frames ``[N, H, W, C]`` (both on one device): per
+    conv and TCN layer the ternary weights and the folded per-channel scale;
+    the classifier's ternary weights and per-class scale."""
     nu = cfg["weight_nu"]
     with torch.no_grad(), _flags(cudnn=True):
         stds = _calibration_stds(cfg, params, calib)
@@ -164,9 +168,18 @@ def _scaled_ternary(acc, eff, thr, precision: str):
     return _ternarize(acc * eff, thr)
 
 
+def _classify(x, fc: Dict, precision: str):
+    y = x @ fc["t"]
+    if precision == "bf16":
+        return (y.to(torch.bfloat16) * fc["scale"].to(torch.bfloat16)).to(torch.float32)
+    return y * fc["scale"]
+
+
 def spatial(cfg: Dict, tables: Dict, frames: torch.Tensor,
             precision: str = "fp32") -> torch.Tensor:
-    """Frames ``[N, H, W, C]`` float32 -> the ring's feature vectors ``[N, C]``."""
+    """Frames ``[N, H, W, C]`` float32 -> the ring's feature vectors ``[N, C]``
+    (a ``global_pool``), or a spatial classifier's logits ``[N, n_classes]``
+    (a ``flatten``, then the ``fc``)."""
     thr = cfg["act_threshold"]
     x = frames.permute(0, 3, 1, 2)  # NCHW from here on
     ci = 0
@@ -189,7 +202,11 @@ def spatial(cfg: Dict, tables: Dict, frames: torch.Tensor,
                 if precision == "bf16":
                     return x.to(torch.bfloat16).mean(dim=(2, 3)).to(torch.float32)
                 return x.mean(dim=(2, 3))
-    raise ValueError("the configuration's spatial layers end without a global_pool")
+            elif kind == "flatten":
+                x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)  # the port's NHWC order
+            elif kind == "fc":
+                return _classify(x, tables["fc"], precision)
+    raise ValueError("the configuration's spatial layers end without a global_pool or an fc")
 
 
 def temporal(cfg: Dict, tables: Dict, window: torch.Tensor,
@@ -212,11 +229,7 @@ def temporal(cfg: Dict, tables: Dict, window: torch.Tensor,
             elif kind == "last_step":
                 x = x[:, :, -1]
             elif kind == "fc":
-                fc = tables["fc"]
-                y = x @ fc["t"]
-                if precision == "bf16":
-                    return (y.to(torch.bfloat16) * fc["scale"].to(torch.bfloat16)).to(torch.float32)
-                return y * fc["scale"]
+                return _classify(x, tables["fc"], precision)
     raise ValueError("the configuration's temporal layers end without an fc")
 
 

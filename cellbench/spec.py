@@ -3,8 +3,10 @@
 A cell names a configuration and a traffic mix.  The configuration's file is
 the ``file`` of its ``configs`` entry; the mix is ``traffic/<mix>.json``; the
 mix's ``loop`` is ``loops/<loop>.py``; the configuration's ``frames`` is
-``sources/<frames>.py``; a metric is ``metrics/<name>.py``.  Modules are
-loaded from their files, so a name needs only to be a file name.
+``sources/<frames>.py`` and its ``system`` (the system under test, which
+brings its own comparison with a plain reference of ``reference/``)
+``systems/<system>.py``; a metric is ``metrics/<name>.py``.
+Modules are loaded from their files, so a name needs only to be a file name.
 """
 from __future__ import annotations
 
@@ -136,3 +138,5 @@ class Spec:
         loop = load_module("loops", cell.traffic["loop"])
         loop.prepare, loop.drive
         load_module("sources", cell.config["frames"]).make_bank
+        system = load_module("systems", cell.config["system"])
+        system.build, system.compare, system.control

@@ -51,14 +51,14 @@ def main(argv=None) -> int:
     cell = Spec.load(ROOT).cell(args.workload)
     loop = load_module("loops", cell.traffic["loop"])
     dev = torch.device("cuda")
-    _, _, bank, batcher, _ = set_up(cell, args.seed, dev)
+    _, _, bank, system, _ = set_up(cell, args.seed, dev)
     setup_s = time.perf_counter() - T_START
     print(json.dumps({"workload": cell.name, "setup_s": setup_s,
                       "card": torch.cuda.get_device_name(dev)}), flush=True)
     for rate in (float(r) for r in args.rates.split(",")):
         mix = dict(cell.traffic, rate_per_s=rate)
         plan = loop.prepare(mix, args.seconds, bank, args.seed)
-        w = Window(batcher, bank)
+        w = Window(system)
         gc.collect()
         gc.freeze()
         w.open()

@@ -36,7 +36,7 @@ def new_metrics():
 def record(spans, clips=(), tick_base=0):
     cell = Cell("made_up", {}, {}, 1, [], [])
     return bench.RunRecord(cell=cell, setup_s=1.0, window_s=1.0, frames=0, ticks=4,
-                           step_ticks=4, clips=list(clips), tick_walls=[0.0] * 8,
+                           step_ticks=4, batch=4, clips=list(clips), tick_walls=[0.0] * 8,
                            tick_base=tick_base, spans=spans, profile=None)
 
 

@@ -129,6 +129,16 @@ def make_bank(source, cfg: Dict, mix: Dict, seed: int, device) -> Bank:
     return Bank(np.ascontiguousarray(frames, np.float32), content)
 
 
+def calibration(bank: Bank, cfg: Dict) -> np.ndarray:
+    """The calibration frames, every one on: for a net with a ring memory the
+    first ``calib_clips`` sequences' first ``tcn_steps`` frames ``[clips,
+    steps, H, W, C]``; for a net without one the bank's first ``calib_frames``
+    frames ``[N, H, W, C]``."""
+    if "tcn_steps" in cfg:
+        return bank.content[:int(cfg["calib_clips"]), :cfg["tcn_steps"]].copy()
+    return bank.content.reshape(-1, *bank.content.shape[2:])[:int(cfg["calib_frames"])].copy()
+
+
 def clips(mix: Dict, n: int, bank: Bank, seed: int, tag: str, *, start: int = 0,
           dues: Optional[np.ndarray] = None, prefix: str = "k") -> List[Clip]:
     """``n`` clips of the mix, numbered from ``start``: lengths from its grid,

@@ -9,7 +9,8 @@ classifier.  Bytes are each input read once in the dtype the graph carries
 (float32 frames into the first conv and float32 ring features into the first
 TCN layer, int8 trits between layers), the 2-bit packed weights, a float32
 scale and threshold per output channel, and the output written once as int8
-trits (after its fused pool or stride).
+trits (after its fused pool or stride).  A configuration without
+``tcn_steps`` has no ring and no TCN layer.
 
 A layer's bound is ``max(ops / PEAK_OPS, bytes / PEAK_BYTES)``: the least time
 an H100 could take for it, the same for every implementation.
@@ -39,7 +40,7 @@ class Layer:
 def layers(cfg: Dict, batch: int) -> List[Layer]:
     """The weight layers of ``cfg`` at ``batch`` frames a step, in order."""
     h, w = cfg["input_hw"]
-    steps = cfg["tcn_steps"]
+    steps = cfg.get("tcn_steps")
     in_bytes = 4  # float32 frames
     out: List[Layer] = []
     specs = cfg["layers"]
