@@ -8,6 +8,8 @@ version.  It imports `repro_torch` only.
   * the serving path — the full-width ``dvs_cnn_tcn`` net (96 channels,
     64x64x2 event frames, 24-step TCN ring) through an 8-slot `SessionPool`
     under a `ContinuousBatcher` on the ``fused`` backend (kernel K1);
+    and the full-width ``cifar10_tnn`` (the paper's CIFAR-10 network) through
+    a 256-image `BatchClassifier` (`DeployedProgram.classify`, kernel K1);
   * the quickstart path — `python -m repro_torch.quickstart`: the
     full-width ``cifar10_tnn`` on every deploy backend, the packed-ternary
     matmul (kernel K2) and the silicon model;
@@ -88,7 +90,12 @@ line):
                 pool-8 tick captured and eager, timed in turns (captured,
                 eager, eager, captured; 3 rounds of 40 ticks): host ms/tick,
                 frames/s, and a `torch.profiler` window of each for device
-                ms/tick and the busy share
+                ms/tick and the busy share.  Then ``cifar10_tnn`` at full
+                width through ``classify(256)``: 12 seeded requests of 1-512
+                images; gates: every request answered with one row per
+                image, each row == the eager fused forward and the plain
+                (``ref``) forward of its image bit for bit, one capture,
+                8 K1 launches in each replay
   5. quickstart `repro_torch.quickstart` on the card (exit 0, >= 1 K2 launch);
                 fused == kernel == ref == bitsim on two full-width
                 ``dvs_cnn_tcn`` clips and a bitsim stream == its batch
@@ -297,6 +304,7 @@ N_FRAMES = 8
 TIMED_TICKS = 40    # pool ticks per timed window (phase 4c)
 TIMING_ROUNDS = 3   # rounds of captured, eager, eager, captured
 SEED = 0
+CLASSIFY_BATCH = 256  # images per tick of the classifier (phase 4d)
 K1_REPLACES = "src/repro/kernels/ternary_conv2d.py:91"
 K1_SOURCE = "src/repro_torch/csrc/ternary_conv2d.cu"
 K2_REPLACES = "src/repro/kernels/ternary_matmul.py:62"
@@ -855,7 +863,70 @@ def serve_main_path(dev):
           f"session (captured and eager); fused == ref", flush=True)
     serving["backends_captured_vs_eager"] = _captured_vs_eager_backends(dev)
     serving["tick_times"] = _tick_times(deployed, dev)
+    serving["classify"] = _classify_main_path(dev)
     return launches, serving
+
+
+def _classify_main_path(dev):
+    """Phase 4d: the full-width ``cifar10_tnn`` through a 256-image
+    `BatchClassifier`: seeded 8-bit images in 12 requests of 1-512 images,
+    served to the end.  Gates: every request answered with one row per
+    image, each row bit-equal to the eager fused forward of its image, the
+    step captured once, 8 K1 launches in each replay.  Returns the run's
+    images, ticks, K1 launches and images/s."""
+    from repro_torch.api import get_net
+    from repro_torch.kernels.ternary_conv2d import ternary_conv2d_cuda
+
+    prog = get_net("cifar10_tnn")
+    g = prog.graph
+    convs = [l for l in g.layers if l.kind == "conv2d"]
+    if (g.input_hw, len(convs), max(l.c_out for l in convs)) != ((32, 32), 8, 96):
+        fail(f"cifar10_tnn is not at full width: {g}")
+    rng = np.random.default_rng(SEED)
+    sizes = rng.integers(1, 2 * CLASSIFY_BATCH + 1, 12)
+    images = ((rng.integers(0, 256, (int(sizes.sum()), *g.input_hw, g.input_ch)) - 128)
+              / 128).astype(np.float32)
+    deployed = prog.quantize(prog.init(torch.Generator().manual_seed(SEED), device=dev),
+                             calib=torch.from_numpy(images[:16]).to(dev))
+    clf = deployed.classify(CLASSIFY_BATCH)
+    ends = np.cumsum(sizes)
+    for i, (lo, hi) in enumerate(zip(ends - sizes, ends)):
+        clf.submit(f"request-{i}", images[lo:hi])
+    ternary_conv2d_cuda.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    answers = dict(clf.run())
+    wall = time.perf_counter() - t0
+    launches = ternary_conv2d_cuda.launches
+    if len(answers) != len(sizes) or [len(answers[f"request-{i}"]) for i in
+                                      range(len(sizes))] != sizes.tolist():
+        fail(f"classify: {len(answers)}/{len(sizes)} requests answered, or rows != images")
+    got = np.concatenate([answers[f"request-{i}"] for i in range(len(sizes))])
+    # the eager fused forward launches the same K1 as the replays; the plain
+    # path ("ref": float32 conv, no kernel of the port) holds K1 itself to
+    # its arithmetic at this batch and on these 8-bit pixel inputs
+    for lo in range(0, len(images), CLASSIFY_BATCH):
+        x = torch.from_numpy(images[lo:lo + CLASSIFY_BATCH]).to(dev)
+        for backend in ("fused", "ref"):
+            want = deployed.forward(x, backend=backend).cpu().numpy()
+            if not np.array_equal(got[lo:lo + len(want)], want):
+                fail(f"classify: images {lo}.. served != the eager {backend} forward")
+    if np.abs(got).max() == 0:
+        fail("classify: every logit is zero; the comparison would be vacuous")
+    if clf.trace_count != 1 or not clf.captured or clf.step.k1_per_replay != 8:
+        fail(f"classify: {clf.trace_count} captures (captured {clf.captured}), "
+             f"{clf.step.k1_per_replay} K1 launches a replay; the contract is 1 and 8")
+    if launches != 8 * clf.tick_index:
+        fail(f"classify: {launches} K1 launches over {clf.tick_index} ticks, expected 8 a tick")
+    out = {"net": g.name, "batch": CLASSIFY_BATCH, "requests": len(sizes),
+           "images": int(sizes.sum()), "ticks": clf.tick_index, "k1_launches": launches,
+           "wall_s": wall, "images_per_s": int(sizes.sum()) / wall}
+    print(f"[chip_smoke] classify: {g.name} fused, {out['images']} images in "
+          f"{len(sizes)} requests, batch {CLASSIFY_BATCH}: {clf.tick_index} ticks, "
+          f"{wall:.3f} s -> {out['images_per_s']:.0f} images/s (first tick builds); "
+          f"{launches} K1 launches (8 per tick), step captured once; served == eager "
+          f"fused == ref forward on every image", flush=True)
+    return out
 
 
 def _captured_vs_eager_backends(dev):

@@ -9,6 +9,7 @@ Counterpart of `repro.api.program`:
     logits   = deployed.forward(frames, backend="fused")    # | "kernel" | "ref" | "bitsim"
     session  = deployed.stream(batch=4)                     # TCN ring memory
     pool     = deployed.serve(pool_size=8)                  # continuous batching
+    clf      = deployed.classify(batch=256)                 # spatial nets: batch classification
     report   = deployed.silicon_report(v=0.5)               # cycles/energy vs Table 1
 
 Backends:
@@ -641,6 +642,15 @@ class DeployedProgram:
         from repro_torch.serving import SessionPool
 
         return SessionPool(self, pool_size, backend=backend, **kwargs)
+
+    def classify(self, batch: int, backend: str = "fused", tracer=None):
+        """Batch classification (spatial graphs only): a
+        `repro_torch.serving.BatchClassifier` that serves FIFO requests of
+        images ``batch`` at a time through one step over this program —
+        captured once on the card, eager on the CPU."""
+        from repro_torch.serving import BatchClassifier
+
+        return BatchClassifier(self, batch, backend=backend, tracer=tracer)
 
     def serve_fleet(self, name: Optional[str] = None, backend: str = "fused",
                     **kwargs):

@@ -1,6 +1,7 @@
 """Serving launcher of the port: LM serving (``--arch``, the default path),
-CUTIE multi-sensor streaming (``--dvs``) and multi-tenant fleet serving
-(``--fleet``).  Counterpart of `repro.launch.serve`.
+CUTIE multi-sensor streaming (``--dvs``), multi-tenant fleet serving
+(``--fleet``) and batch image classification (``--classify``, the port's
+own).  Counterpart of `repro.launch.serve`.
 
 LM serving (`serve_lm`): prefill a batch of random prompts, then decode
 greedily with the KV/SSM cache, and print the reference's two ``[serve]``
@@ -33,6 +34,18 @@ non-finite logits, or when a stream did not complete.
     python -m repro_torch.launch.serve --fleet --fleet-nets dvs_cnn_tcn,kws_tcn \\
         --pool 8 [--gate] [--out fleet.json]                                  # many nets
 
+The classification scenario (`serve_classify`, ``--classify``) serves a
+spatial net (``--net cifar10_tnn``, the paper's CIFAR-10 network) through a
+`repro_torch.serving.BatchClassifier` of ``--batch`` images a tick: ``--requests``
+seeded requests of 1 to ``2 * --batch`` 8-bit images each, quantized with
+the first ``CALIB_IMAGES`` images as calibration.  It reports images/s and
+the step's builds, checks every answered image bit-equal to an eager
+``DeployedProgram.forward`` on ``--backend`` and exits non-zero on a
+mismatch, non-finite logits or an unanswered request.
+
+    python -m repro_torch.launch.serve --classify --net cifar10_tnn --batch 256 --requests 64
+    python -m repro_torch.launch.serve --classify --net cifar10_tnn_smoke --device cpu
+
 ``--program FILE.cutie`` serves a `repro_torch.artifact` (built with
 ``python -m repro_torch.artifact build``) instead of quantizing ``--net``:
 no graph object on that path, the pool runs what the artifact holds.
@@ -45,7 +58,7 @@ into a second step program; with ``--gate`` each stream must also process
 exactly the frames `ActivityGate.plan` selects and the gate must save
 energy (CUTIE silicon-model uJ) whenever the trace has quiet frames.
 
-``--trace FILE.json`` records a `repro_torch.obs` trace of either scenario
+``--trace FILE.json`` records a `repro_torch.obs` trace of any CUTIE scenario
 (tick/step/feeder spans, park/wake/scale instants, one sim layer-timeline
 track per served program) as Chrome/Perfetto JSON; ``--trace-clock tick``
 stamps a deterministic event sequence instead of wall time; ``--metrics-out
@@ -264,6 +277,70 @@ def serve_dvs(args) -> int:
               file=sys.stderr)
         return 1
     return 0
+
+
+CALIB_IMAGES = 16  # the classification scenario's calibration images
+
+
+def serve_classify(args) -> int:
+    """Batch classification of seeded 8-bit images over a `BatchClassifier`.
+
+    ``--requests`` requests of 1 to ``2 * --batch`` images each (seeded by
+    ``--seed``) are submitted at once and served to the end; every answered
+    image is then checked against an eager ``forward`` of the same images."""
+    from repro_torch.api import get_net
+
+    device = resolve_device(args.device)
+    prog = get_net(args.net)
+    g = prog.graph
+    if g.is_temporal:
+        print(f"[serve-classify] {g.name} has a TCN memory: serve it with --dvs",
+              file=sys.stderr)
+        return 2
+    rng = np.random.default_rng(args.seed)
+    sizes = rng.integers(1, 2 * args.batch + 1, args.requests)
+    pixels = rng.integers(0, 256, (int(sizes.sum()), *g.input_hw, g.input_ch))
+    images = ((pixels - 128) / 128).astype(np.float32)  # dyadic 8-bit pixels in [-1, 1)
+    params = prog.init(torch.Generator().manual_seed(args.seed), device=device)
+    deployed = prog.quantize(params, calib=torch.from_numpy(images[:CALIB_IMAGES]).to(device))
+
+    tracer = _make_tracer(args)
+    clf = deployed.classify(args.batch, backend=args.backend, tracer=tracer)
+    starts = np.concatenate([[0], np.cumsum(sizes)])
+    for i in range(args.requests):
+        clf.submit(f"request-{i}", images[starts[i]:starts[i + 1]])
+    t0 = time.perf_counter()
+    answers = dict(clf.run())
+    wall = time.perf_counter() - t0
+    _write_obs(args, tracer, {clf.track: deployed}, None, tag="serve-classify")
+
+    print(f"[serve-classify] {g.name} ({args.backend}, {device}): {args.requests} requests, "
+          f"{len(images)} images, batch {args.batch}")
+    print(f"[serve-classify] {clf.images_stepped} images in {clf.tick_index} ticks, "
+          f"{wall:.3f} s -> {clf.images_stepped / wall:.0f} images/s; step "
+          f"captures/builds {clf.trace_count} (captured: {clf.captured})")
+    failures = []
+    if len(answers) != args.requests:
+        failures.append(f"{args.requests - len(answers)}/{args.requests} requests unanswered")
+    else:
+        got = np.concatenate([answers[f"request-{i}"] for i in range(args.requests)])
+        if not np.isfinite(got).all():
+            failures.append("non-finite logits")
+        for lo in range(0, len(images), args.batch):
+            x = torch.from_numpy(images[lo:lo + args.batch]).to(device)
+            want = deployed.forward(x, backend=args.backend).cpu().numpy()
+            if not np.array_equal(got[lo:lo + len(want)], want):
+                failures.append(f"images {lo}..{lo + len(want) - 1}: served logits != "
+                                "an eager forward's")
+                break
+    print(f"[serve-classify] served == eager forward on every answered image: "
+          f"{not failures}")
+    rep = deployed.silicon_report(v=0.5)
+    print(f"[serve-classify] CUTIE @0.5V would classify {rep.inf_per_s:.0f} images/s at "
+          f"{rep.energy_uj:.2f} uJ/image")
+    for f in failures:
+        print(f"[serve-classify] FAIL: {f}", file=sys.stderr)
+    return 1 if failures else 0
 
 
 def serve_fleet_scenario(args) -> int:
@@ -504,7 +581,7 @@ def _write_obs(args, tracer, programs, metrics, tag: str) -> None:
         )
         print(f"[{tag}] trace -> {args.trace} ({len(tracer)} events, "
               f"{tracer.dropped} dropped; load in ui.perfetto.dev)")
-    if args.metrics_out:
+    if args.metrics_out and metrics is not None:
         with open(args.metrics_out, "w") as f:
             f.write(metrics.render())
         print(f"[{tag}] metrics -> {args.metrics_out}")
@@ -541,7 +618,7 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(
         description="repro_torch serving launcher (LM prefill + decode, DVS "
-                    "multi-sensor pool, multi-net fleet)")
+                    "multi-sensor pool, multi-net fleet, batch classification)")
     ap.add_argument("--arch", choices=ARCH_IDS, default="gemma-2b",
                     help="LM: architecture to serve (the default path)")
     ap.add_argument("--smoke", action="store_true",
@@ -549,17 +626,23 @@ def main(argv=None) -> int:
     ap.add_argument("--quant", default="none",
                     choices=["none", "ternary", "ternary_packed"],
                     help="LM: weight quantization (ternary_packed: 2-bit weights)")
-    ap.add_argument("--batch", type=int, default=4, help="LM: prompts per batch")
+    ap.add_argument("--batch", type=int, default=4,
+                    help="LM: prompts per batch; classify: images per tick")
     ap.add_argument("--prompt-len", type=int, default=32, help="LM: prompt tokens")
     ap.add_argument("--tokens", type=int, default=16,
                     help="LM: tokens generated per prompt (prefill's + decode steps)")
     ap.add_argument("--dvs", action="store_true",
                     help="serve DVS sensor streams through a SessionPool")
+    ap.add_argument("--classify", action="store_true",
+                    help="serve image requests through a BatchClassifier")
+    ap.add_argument("--requests", type=int, default=16,
+                    help="classify: requests of 1 to 2x --batch images each")
     ap.add_argument("--backend", default="fused", choices=list(BACKENDS))
     ap.add_argument("--frames", type=int, default=8,
                     help="event frames per sensor stream")
     ap.add_argument("--net", default="dvs_cnn_tcn",
-                    help="dvs: registry net to serve (e.g. dvs_cnn_tcn_smoke)")
+                    help="dvs, classify: registry net to serve (e.g. dvs_cnn_tcn_smoke, "
+                         "cifar10_tnn)")
     ap.add_argument("--program", default=None, metavar="FILE.cutie",
                     help="dvs: serve a .cutie artifact (repro_torch.artifact) "
                          "instead of quantizing --net")
@@ -611,8 +694,8 @@ def main(argv=None) -> int:
                     help="trace timestamps: wall ns (default) or the "
                          "deterministic per-event sequence")
     ap.add_argument("--metrics-out", default=None, metavar="FILE.prom",
-                    help="write the serving metrics registry as a Prometheus "
-                         "text snapshot")
+                    help="dvs, fleet: write the serving metrics registry as a "
+                         "Prometheus text snapshot")
     ap.add_argument("--shard", action="store_true",
                     help="dvs/fleet: shard each pool's slot axis across the local "
                          "cards (sharding='auto')")
@@ -626,6 +709,8 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     if args.fleet:
         return serve_fleet_scenario(args)
+    if args.classify:
+        return serve_classify(args)
     if args.dvs:
         return serve_dvs(args)
     return serve_lm(args)

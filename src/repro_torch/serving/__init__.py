@@ -12,6 +12,11 @@ host while the card runs the current one.  Entry points:
 `DeployedProgram.serve_fleet()` / `LoadedProgram.serve_fleet()` /
 `repro_torch.serving.serve_fleet({...})` for many.
 
+`BatchClassifier` serves a net without a TCN memory (a spatial
+classifier such as ``cifar10_tnn``) instead: FIFO requests of images,
+``batch`` images a tick through one captured step, one device-to-host copy
+of the logits a tick.  Entry point: `DeployedProgram.classify(batch)`.
+
 `ActivityGate` adds duty cycling on top: quiet streams park out of their
 pool slot with ring state retained, wake bit-identically on an event burst,
 and `energy_summary` prices the skipped frames in uJ of the CUTIE silicon
@@ -19,7 +24,8 @@ model.
 
 Layering: `masking` (state algebra) <- `pool` (mechanism) <-
 `gating` (host-side policy) <- `scheduler` (single-net policy) <-
-`fleet` (multi-net policy).
+`fleet` (multi-net policy); `pool`'s host batch <- `classify` (a spatial
+net's batch classification, beside the stream stack).
 """
 from repro_torch.serving.masking import (
     PoolState,
@@ -48,6 +54,7 @@ from repro_torch.serving.gating import (
     frame_energy_uj,
 )
 from repro_torch.serving.pool import PoolFullError, PoolSharding, SessionPool
+from repro_torch.serving.classify import BatchClassifier
 from repro_torch.serving.scheduler import ContinuousBatcher, StreamRequest, StreamResult
 
 __all__ = [
@@ -56,5 +63,6 @@ __all__ = [
     "bucket_ladder", "serve_fleet",
     "PoolState", "clear_slot", "clear_slot_", "gather_slot", "masked_push",
     "masked_push_", "ordered_windows", "scatter_slot", "scatter_slot_",
+    "BatchClassifier",
     "PoolFullError", "PoolSharding", "SessionPool", "ContinuousBatcher", "StreamRequest", "StreamResult",
 ]

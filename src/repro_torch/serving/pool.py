@@ -252,7 +252,8 @@ class SessionPool:
 
         check_backend(backend)
         if not deployed.graph.is_temporal:
-            raise ValueError(f"{deployed.graph.name} has no TCN memory to pool")
+            raise ValueError(f"{deployed.graph.name} has no TCN memory to pool: serve "
+                             "its images with DeployedProgram.classify()")
         if pool_size < 1:
             raise ValueError(f"pool_size must be >= 1, got {pool_size}")
         self.deployed = deployed
