@@ -873,7 +873,8 @@ def _classify_main_path(dev):
     served to the end.  Gates: every request answered with one row per
     image, each row bit-equal to the eager fused forward of its image, the
     step captured once, 8 K1 launches in each replay.  Returns the run's
-    images, ticks, K1 launches and images/s."""
+    images, ticks, K1 launches, the share of ticks that left their batch
+    in flight (the pipelined flush) and images/s."""
     from repro_torch.api import get_net
     from repro_torch.kernels.ternary_conv2d import ternary_conv2d_cuda
 
@@ -895,7 +896,10 @@ def _classify_main_path(dev):
     ternary_conv2d_cuda.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    answers = dict(clf.run())
+    answers, inflight = {}, 0
+    while clf.pending:  # clf.run(), counting the ticks that left their batch on the card
+        answers.update(clf.tick()[1])
+        inflight += clf.inflight
     wall = time.perf_counter() - t0
     launches = ternary_conv2d_cuda.launches
     if len(answers) != len(sizes) or [len(answers[f"request-{i}"]) for i in
@@ -920,11 +924,13 @@ def _classify_main_path(dev):
         fail(f"classify: {launches} K1 launches over {clf.tick_index} ticks, expected 8 a tick")
     out = {"net": g.name, "batch": CLASSIFY_BATCH, "requests": len(sizes),
            "images": int(sizes.sum()), "ticks": clf.tick_index, "k1_launches": launches,
+           "inflight_share": inflight / clf.tick_index,
            "wall_s": wall, "images_per_s": int(sizes.sum()) / wall}
     print(f"[chip_smoke] classify: {g.name} fused, {out['images']} images in "
           f"{len(sizes)} requests, batch {CLASSIFY_BATCH}: {clf.tick_index} ticks, "
           f"{wall:.3f} s -> {out['images_per_s']:.0f} images/s (first tick builds); "
-          f"{launches} K1 launches (8 per tick), step captured once; served == eager "
+          f"{launches} K1 launches (8 per tick), step captured once; "
+          f"{inflight}/{clf.tick_index} ticks left their batch in flight; served == eager "
           f"fused == ref forward on every image", flush=True)
     return out
 

@@ -15,7 +15,9 @@ host while the card runs the current one.  Entry points:
 `BatchClassifier` serves a net without a TCN memory (a spatial
 classifier such as ``cifar10_tnn``) instead: FIFO requests of images,
 ``batch`` images a tick through one captured step, one device-to-host copy
-of the logits a tick.  Entry point: `DeployedProgram.classify(batch)`.
+of the logits a tick, flushed the tick after while untaken images remain
+(the next batch is assembled while the card runs this one).  Entry point:
+`DeployedProgram.classify(batch)`.
 
 `ActivityGate` adds duty cycling on top: quiet streams park out of their
 pool slot with ring state retained, wake bit-identically on an event burst,

@@ -85,10 +85,12 @@ def test_requests_straddle_batches_and_padding_is_never_answered_or_counted(smok
     while clf.pending:
         n, departed = clf.tick()
         ticks.append((n, [rid for rid, _ in departed]))
-    # r1's 6 images span ticks 0-2; the last tick holds 1 image and 3 zero rows
-    assert ticks == [(4, ["r0"]), (4, []), (4, ["r1", "r2", "r3"]), (4, []),
-                     (4, ["r4"]), (1, ["r5"])]
-    assert clf.images_stepped == sum(SIZES) and clf.queue_depth == 0
+    # each batch's logits reach the host one tick after its step, while
+    # untaken images remain; r1's 6 images span batches 0-2; the last tick
+    # takes the last image (and 3 zero rows) and flushes batches 4 and 5
+    assert ticks == [(0, []), (4, ["r0"]), (4, []), (4, ["r1", "r2", "r3"]), (4, []),
+                     (5, ["r4", "r5"])]
+    assert clf.images_stepped == sum(SIZES) and clf.queue_depth == 0 and not clf.inflight
     assert not clf.x[1:].any()  # the short batch's padding rows are zero images
     assert clf.tick() == (0, []) and clf.tick_index == len(ticks) + 1
     assert clf.images_stepped == sum(SIZES)
@@ -103,9 +105,16 @@ def test_a_traced_run_spans_every_stepping_tick_once(smoke):
     clf.tick()  # nothing queued: a tick span of 0 images, nothing under it
     events = tracer.events()
     names = Counter(e.name for e in events if e.phase == "X")
-    assert {name: names[name] for name in STEPS} == {name: 6 for name in STEPS}
+    # six stepping ticks; every one but the first flushes, once
+    assert {name: names[name] for name in STEPS} == {**{name: 6 for name in STEPS[:3]},
+                                                    "classify.flush": 5}
     assert names["classify.tick"] == 7
-    assert [e.args["images"] for e in events if e.name == "classify.tick"] == [4] * 5 + [1, 0]
+    ticks = [e.args for e in events if e.name == "classify.tick"]
+    assert [a["images"] for a in ticks] == [4] * 5 + [1, 0]
+    assert [a["inflight"] for a in ticks] == [1] * 5 + [0, 0]
+    flushes = [e.args for e in events if e.name == "classify.flush"]
+    assert [a["rows"] for a in flushes] == [4, 4, 4, 4, 5]
+    assert all(a["waited_us"] == 0.0 for a in flushes)  # no events to wait on, on the CPU
     assert [e.args["classify.queue_depth"] for e in events
             if e.name == "classify.queue_depth"] == [21, 17, 13, 9, 5, 1, 0]
     assert sum(e.name == "classify.build" for e in events) == 1
@@ -118,6 +127,75 @@ def test_a_traced_run_spans_every_stepping_tick_once(smoke):
     traced = deployed.classify(BATCH, tracer=Tracer())
     submit_all(traced, images)
     assert all(np.array_equal(a, b) for (_, a), (_, b) in zip(again.run(), traced.run()))
+
+
+def test_submits_between_ticks_keep_answers_exact_and_in_order(smoke):
+    """A closed loop: each departed request is replaced by the next one,
+    submitted between ticks while a batch is on the card."""
+    deployed, _, images = smoke
+    sizes = [3, 5, 2, 7, 1, 4, 6, 2, 3, 1, 5, 2]
+    ends = np.cumsum(sizes)
+    pool = np.concatenate([images, images])[:ends[-1]]
+    clf = deployed.classify(BATCH)
+    nxt, answers, ticks, deferred = 0, [], 0, 0
+
+    def submit_next():
+        nonlocal nxt
+        clf.submit(f"q{nxt}", pool[ends[nxt] - sizes[nxt]:ends[nxt]])
+        nxt += 1
+
+    for _ in range(4):
+        submit_next()
+    while clf.pending:
+        _, departed = clf.tick()
+        ticks += 1
+        deferred += clf.inflight
+        answers.extend(departed)
+        for _ in departed:
+            if nxt < len(sizes):
+                submit_next()
+    assert [rid for rid, _ in answers] == [f"q{i}" for i in range(len(sizes))]
+    assert [len(a) for _, a in answers] == sizes
+    got = np.concatenate([a for _, a in answers])
+    assert np.array_equal(got, deployed.forward(torch.from_numpy(pool), backend="ref").numpy())
+    assert clf.images_stepped == ends[-1] and ticks == clf.tick_index
+    assert 0 < deferred < ticks  # the pipeline engaged, and the drain flushed in its tick
+    # a lone short request is answered in the tick that steps it
+    tracer = Tracer(capacity=64)
+    lone = deployed.classify(BATCH, tracer=tracer)
+    lone.submit("one", images[:2])
+    n, departed = lone.tick()
+    assert n == 2 and [rid for rid, _ in departed] == ["one"] and not lone.inflight
+    assert np.array_equal(departed[0][1],
+                          deployed.forward(torch.from_numpy(images[:2]), backend="ref").numpy())
+    tick = next(e for e in tracer.events() if e.name == "classify.tick")
+    assert tick.args == {"images": 2, "inflight": 0}
+
+
+def test_consecutive_batches_use_the_two_host_batches_in_turn(smoke, monkeypatch):
+    """Batch k goes into host batch k % 2, and the host batch of the batch
+    on the card is not written until that batch is flushed."""
+    deployed, _, images = smoke
+    clf = deployed.classify(BATCH)
+    submit_all(clf, images)
+    assemble = BatchClassifier._assemble
+    written = []
+
+    def spy(self, slot):
+        if self._inflight is not None:
+            assert slot != self._inflight.slot  # the batch on the card keeps its host batch
+        written.append(slot)
+        return assemble(self, slot)
+
+    monkeypatch.setattr(BatchClassifier, "_assemble", spy)
+    while clf.pending:
+        held = clf._inflight
+        kept = None if held is None else clf._hosts[held.slot].batch.copy()
+        clf.tick()
+        if held is not None:  # flushed this tick, and not rewritten in it
+            assert np.array_equal(clf._hosts[held.slot].batch, kept)
+    assert written == [0, 1, 0, 1, 0, 1]
+    assert clf._hosts[0].batch is not clf._hosts[1].batch
 
 
 def test_the_pool_refuses_a_spatial_net_and_the_classifier_a_temporal_one(smoke):
@@ -183,6 +261,9 @@ def test_the_captured_classifier_at_full_width_on_the_card():
         assert np.array_equal(got, want) and np.abs(want).max() > 0, backend
     ev = tracer.events()
     assert all(e.args["pinned"] for e in ev if e.name == "classify.upload")
+    # three full batches leave the queue untaken images; the short one drains it
+    assert [e.args["inflight"] for e in ev if e.name == "classify.tick"] == [1, 1, 1, 0]
+    assert [e.args["rows"] for e in ev if e.name == "classify.flush"] == [256, 256, 345]
     replays = [e for e in ev if e.name == "dev.replay"]
     assert len(replays) == 4 and [e.args["k1"] for e in replays] == [8, 8, 8, 8]
     assert {e.track for e in replays} == {"cifar10_tnn.device"}
