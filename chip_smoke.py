@@ -111,9 +111,10 @@ line):
                 and == a lone `StreamSession` on the loaded program, a grow
                 and a shrink in each bucket, each rung's pool constructed
                 once (count and object identity), every pool that stepped
-                captured once, 9 / 7 K1 launches per bucket tick (pinned
-                feeder buffers, copies without blocking), the same run with
-                ``ingest="sync"`` bit-identical.
+                captured once, 9 / 7 K1 launches per bucket tick (the
+                feeder thread fills each pool's pinned staging ring, copies
+                without blocking), the same run with ``ingest="sync"``
+                bit-identical.
                 Gated fleet (``ActivityGate(16, 4, 2)``, 8 sensors per net at
                 duty 0.4): processed frames == ``ActivityGate.plan``, each
                 stream == a lone session fed exactly those frames, a positive

@@ -667,9 +667,9 @@ def main(argv=None) -> int:
                          "ladder (grow is immediate)")
     ap.add_argument("--ingest", default="auto",
                     choices=["auto", "thread", "sync", "off"],
-                    help="fleet: host-side frame ingestion — feeder thread with "
-                         "double buffers (auto/thread), synchronous assembly "
-                         "(sync), or no prefetch at all (off)")
+                    help="fleet: host-side frame ingestion — a feeder thread "
+                         "filling the pool's staging ring (auto/thread), "
+                         "synchronous assembly (sync), or no prefetch at all (off)")
     ap.add_argument("--gate", action="store_true",
                     help="fleet: activity-gate the streams (park quiet sensors "
                          "out of their pool slot, wake on events; adds the "

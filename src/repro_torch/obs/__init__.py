@@ -5,8 +5,8 @@ Counterpart of `repro.obs`; four modules:
     (`Tracer`; `NULL_TRACER` is the always-available disabled instance the
     instrumented hot paths hold when tracing is off).  Its wall-clock spans
     around work on the card measure the host's enqueue time, or its wait
-    where the span blocks on the card (the serving tick's ``pool.upload`` of
-    a pageable batch, ``flush``, a ``pool.stage_wait``).
+    where the span blocks on the card (the serving tick's ``flush``, a
+    ``pool.stage_wait``).
   * `repro_torch.obs.device` — device time on the tracer's clock: CUDA
     timing events recorded around a pool's upload and replay, resolved
     without waiting into ``dev.upload`` / ``dev.replay`` spans on a device

@@ -37,11 +37,10 @@ never altered: traced and untraced runs are logit-byte-identical
 PyTorch returns from a kernel launch before the card has run it, so a
 wall-clock span around work on the card brackets the host's enqueue of it,
 not its device time.  A span measures a wait only where something inside it
-blocks on the device: in the serving tick, ``pool.upload`` of a pageable
-frame batch (a copy which first waits for the stream's earlier work, the
-previous replay; the pool's own staging ring is pinned and does not wait)
-and ``flush`` (the departures' device-to-host copy, which
-waits for this tick's replay); ``pool.replay``, ``advance``, ``admit``,
+blocks on the device: in the serving tick, ``flush`` (the departures'
+device-to-host copy, which waits for this tick's replay) and a
+``pool.stage_wait``; ``pool.upload`` (a copy from the pool's pinned staging
+ring, which does not wait), ``pool.replay``, ``advance``, ``admit``,
 ``assemble`` and the gate's spans are host work and enqueue only.  Device
 time comes from CUDA timing events that the instrumented code records
 around its work and resolves later (`repro_torch.obs.device`): `complete`

@@ -12,9 +12,9 @@ k: it takes the next ``batch`` images in submission order, across request
 boundaries, and:
 
   1. **assemble** — copies them (numpy) into host batch ``k % 2``, one of
-     two `pool.HostBatch` objects, pinned on a card, and zeroes the rows the
-     last batch in it filled that get no image now: a short batch is padded
-     with zero images;
+     two ``[batch, H, W, C]`` float32 host tensors, pinned on a card, and
+     zeroes the rows the last batch in it filled that get no image now: a
+     short batch is padded with zero images;
   2. **upload** — copies that host batch into the classifier's static
      device input, without blocking from pinned memory;
   3. **replay** — runs the one step, ``spatial_forward(x, backend)`` over
@@ -79,7 +79,7 @@ import torch
 from repro_torch.capture import CapturedStep
 from repro_torch.obs.device import NULL_DEVICE_SPANS, DeviceSpans, records_device_time
 from repro_torch.obs.tracer import NULL_TRACER
-from repro_torch.serving.pool import HostBatch, host_frame
+from repro_torch.serving.pool import host_frame
 
 
 class _Request:
@@ -130,9 +130,12 @@ class BatchClassifier:
         self.x = torch.zeros((batch, *self.image_shape), dtype=torch.float32,
                              device=self.device)
         self.step = CapturedStep(self._run_step, self.device)
-        # per slot (batch k uses slot k % 2): host batch, rows its last batch
-        # filled, logits buffer and its numpy view, event after the copy into it
-        self._hosts = [HostBatch(batch, self.image_shape, self.pinned) for _ in range(2)]
+        # per slot (batch k uses slot k % 2): host batch and its numpy view, rows
+        # its last batch filled, logits buffer and its numpy view, event after
+        # the copy into it
+        self._images = [torch.zeros((batch, *self.image_shape), dtype=torch.float32,
+                                    pin_memory=self.pinned) for _ in range(2)]
+        self._images_np = [t.numpy() for t in self._images]
         self._filled = [0, 0]
         self._logits = [torch.empty((batch, self.n_classes), dtype=torch.float32,
                                     pin_memory=self.pinned) for _ in range(2)]
@@ -236,7 +239,7 @@ class BatchClassifier:
         last used the slot was flushed at the tick after it, which waited
         for the copy of its logits and so for its upload before it: the
         host batch is free."""
-        batch, n, taken = self._hosts[slot].batch, 0, []
+        batch, n, taken = self._images_np[slot], 0, []
         for req in self._queue:
             if n == self.batch:
                 break
@@ -257,7 +260,7 @@ class BatchClassifier:
         """Host batch ``slot`` into the static device input, without
         blocking from pinned memory (stream order puts it after the last
         replay, which read the input)."""
-        src = self._hosts[slot].tensors[0]
+        src = self._images[slot]
         with self.tracer.span("classify.upload", track=self.track, bytes=src.nbytes,
                               pinned=self.pinned):
             self._device_spans.mark(0)

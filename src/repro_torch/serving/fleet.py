@@ -31,8 +31,8 @@ means many tenants running *different* registry nets concurrently — the
   * **Async host-side ingestion.**  The deploy step is a pure function of
     ring state, so host ingestion and device compute pipeline cleanly: a
     `FrameFeeder` thread assembles the NEXT tick's `[P, H, W, C]` frame
-    batch into host double buffers (pinned when the program lies on the
-    card; the thread makes no CUDA call) while the card executes the
+    batch into the pool's staging ring (pinned when the program lies on
+    the card; the thread makes no CUDA call) while the card executes the
     current step.  Falls back to synchronous
     assembly when threads are unavailable (``ingest="sync"``, or a failed
     thread spawn) — results are bit-identical either way (tested).
@@ -71,12 +71,11 @@ from concurrent.futures import Future, ThreadPoolExecutor
 from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
-import torch
 
 from repro_torch.obs.metrics import MetricsRegistry
 from repro_torch.obs.tracer import NULL_TRACER
 from repro_torch.serving.gating import ActivityGate
-from repro_torch.serving.pool import HostBatch, SessionPool, host_frame
+from repro_torch.serving.pool import HostBatch, SessionPool
 from repro_torch.serving.scheduler import ContinuousBatcher, StreamRequest, StreamResult
 
 DEFAULT_MAX_POOL = 16
@@ -120,49 +119,35 @@ class ScaleEvent:
 
 
 class FrameFeeder:
-    """Async host-side frame ingestion: double buffers + one feeder thread
-    per bucket.
+    """Async host-side frame ingestion: one feeder thread per bucket, which
+    assembles the next tick's batch into the pool's staging ring.
 
     The pool step is a pure function of (ring state, frame batch), and the
     NEXT tick's stream->frame assignment is host-side bookkeeping (clip
     cursors), so the host can assemble tick t+1's batch while the device
-    executes tick t.  `prefetch` schedules the assembly (on the thread, or
-    inline in sync mode); `take` joins and hands the batch over; buffers
-    alternate per prefetch so the one the device just copied from is the
-    one being refilled.  The batcher patches the prefetched batch for
-    admissions/cancellations that happened after the prefetch, so the
-    pipelining is invisible to the numerics (async == sync bit-identical,
-    tested in tests/test_torch_fleet.py).
-
-    With ``pin_memory=True`` (a bucket whose program lies on the card)
-    the buffers are pinned host tensors, allocated on the calling (main)
-    thread, and the thread fills their numpy views: it makes no CUDA call.
-    `SessionPool.step_prepared` copies a pinned buffer to the card without
-    blocking and records an event (`SessionPool.last_upload`), which the
-    batcher hands back through `copied`; before a buffer is given out for
-    refilling, `prefetch` waits on that event, so no host buffer is
-    rewritten while a copy from it is in flight.  Without pinning the
-    buffers are plain host memory and the copy is synchronous.
+    executes tick t.  `prefetch` takes the pool's next ring pair on the
+    calling (main) thread — `SessionPool.next_pair`, which waits there, as
+    `SessionPool.stage` does, until the last copy from that pair to the card
+    has landed — and fills it (`HostBatch.fill`) on the thread, or inline in
+    sync mode; `take` joins and hands the batch over.  The thread only
+    writes the pair's numpy views: it makes no CUDA call.  The batcher
+    patches the prefetched batch for admissions/cancellations that happened
+    after the prefetch, so the pipelining is invisible to the numerics
+    (async == sync bit-identical, tested in tests/test_torch_fleet.py).
 
     ``mode``: "thread" (require a thread; fall back to sync only if spawn
     fails), "sync" (always inline), "auto" (try thread, fall back quietly).
     """
 
-    def __init__(self, mode: str = "auto", pin_memory: bool = False):
+    def __init__(self, mode: str = "auto"):
         if mode not in ("auto", "thread", "sync"):
             raise ValueError(f"unknown ingest mode {mode!r}")
-        self.pin_memory = pin_memory
         self._executor: Optional[ThreadPoolExecutor] = None
         if mode != "sync":
             self._executor = ThreadPoolExecutor(
                 max_workers=1, thread_name_prefix="cutie-feeder"
             )
         self._pending: Optional[Future] = None
-        # (pool_size, frame_shape) -> ([HostBatch x 2], flip index): the
-        # double buffers, one pair per ladder size the bucket visits
-        self._bufs: Dict[Tuple[int, Tuple[int, ...]], list] = {}
-        self._filling: Optional[HostBatch] = None  # the buffer `_pending` fills
-        self._taken: Optional[HostBatch] = None    # handed out by `take`
         self._threaded = self._executor is not None
         # fill spans carry no track, so they land on the lane of the
         # thread that ran the fill — the cutie-feeder thread when threaded
@@ -181,51 +166,20 @@ class FrameFeeder:
         """False once running in sync-fallback mode."""
         return self._threaded
 
-    def _buffers(self, pool_size: int, frame_shape: Tuple[int, ...]) -> "HostBatch":
-        key = (pool_size, tuple(frame_shape))
-        entry = self._bufs.get(key)
-        if entry is None:
-            pair = [HostBatch(pool_size, frame_shape, self.pin_memory) for _ in range(2)]
-            entry = self._bufs[key] = [pair, 0]
-        pair, flip = entry
-        entry[1] = flip ^ 1
-        buf = pair[flip]
-        if buf.copied is not None:
-            buf.copied.synchronize()  # its last copy to the card has landed
-            buf.copied = None
-        return buf
-
-    def copied(self, event) -> None:
-        """Attach the event of the copy from the buffer `take` handed out
-        (`SessionPool.last_upload`; None for a synchronous copy): that
-        buffer is refilled only once the event has completed."""
-        if self._taken is not None:
-            self._taken.copied = event
-            self._taken = None
-
-    def _fill(self, batch: np.ndarray, active: np.ndarray, items):
+    def _fill(self, pair: HostBatch, items):
         with self.tracer.span("feeder.fill", streams=len(items)):
-            batch.fill(0.0)
-            active.fill(False)
-            covered: Dict[str, int] = {}
-            for sid, slot, frames, idx in items:
-                batch[slot] = host_frame(frames[idx])
-                active[slot] = True
-                covered[sid] = slot
-            return batch, active, covered
+            pair.fill([(sid, slot, frames[idx]) for sid, slot, frames, idx in items])
+            return pair.batch, pair.active, {sid: slot for sid, slot, _, _ in items}
 
-    def prefetch(self, pool_size: int, frame_shape, items: Sequence) -> None:
+    def prefetch(self, pool: SessionPool, items: Sequence) -> None:
         """Assemble the next tick's batch for ``items`` = [(stream_id,
-        slot, clip, frame_index), ...] into the back buffer — on the
-        feeder thread when available, inline otherwise."""
+        slot, clip, frame_index), ...] into ``pool``'s next ring pair — on
+        the feeder thread when available, inline otherwise."""
         self.invalidate()  # at most one prefetch outstanding
-        buf = self._filling = self._buffers(pool_size, frame_shape)
-        batch, active = buf.batch, buf.active
+        pair, items = pool.next_pair(), list(items)
         if self._executor is not None:
             try:
-                self._pending = self._executor.submit(
-                    self._fill, batch, active, list(items)
-                )
+                self._pending = self._executor.submit(self._fill, pair, items)
                 return
             except RuntimeError:
                 # interpreter shutting down / thread spawn refused: fall
@@ -233,24 +187,22 @@ class FrameFeeder:
                 self._executor = None
                 self._threaded = False
         done: Future = Future()
-        done.set_result(self._fill(batch, active, list(items)))
+        done.set_result(self._fill(pair, items))
         self._pending = done
 
     def take(self):
         """The prefetched (batch, active, covered) triple, or None when no
         prefetch is outstanding (first tick, or after `invalidate`)."""
-        self._taken = None
         if self._pending is None:
             return None
         with self.tracer.span("feeder.consume", track=self.track):
             result = self._pending.result()
         self._pending = None
-        self._taken = self._filling
         return result
 
     def invalidate(self) -> None:
         """Discard any outstanding prefetch (joining the thread first —
-        the buffer must not be written while a later prefetch reuses it).
+        its pair must not be written while the ring hands it out again).
         Called on pool swaps and cancellations, whose re-slotting the
         prefetched assignment can no longer describe."""
         if self._pending is not None:
@@ -305,9 +257,7 @@ class NetBucket:
         self.pools: Dict[int, SessionPool] = {}
         # rung -> SessionPool constructions: the zero-rebuild audit (1 each)
         self.pools_built: Dict[int, int] = {}
-        self.feeder = FrameFeeder(
-            mode=ingest, pin_memory=torch.device(program.device).type == "cuda",
-        ) if ingest != "off" else None
+        self.feeder = FrameFeeder(mode=ingest) if ingest != "off" else None
         # the bucket's routing key is the export lane: every tick / gate /
         # step span of this bucket lands on one named Perfetto track
         self.batcher = ContinuousBatcher(

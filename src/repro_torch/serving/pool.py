@@ -41,29 +41,27 @@ backend)``, a ``.device`` and a ``.graph`` with ``name`` / ``is_temporal`` /
 `DeployedProgram`, or a `repro_torch.artifact.LoadedProgram` whose ``.graph``
 is the artifact's `ProgramInfo` header.
 
-Frames reach the card from host memory: a batch in pinned memory is
-copied without blocking and an event marks when the copy is done
-(`last_upload`); any other batch is copied synchronously.  `stage`
-assembles a tick's batch into the pool's own staging ring: two `HostBatch`
+Frames reach the card from the pool's own staging ring: two `HostBatch`
 pairs, pinned on a card (plain host tensors elsewhere), made on first use
-and alternating per tick.  A pair is rewritten only once the event of the
-last copy from it has completed, and only the lanes it wrote last time that
-get no frame now are zeroed, so what it holds equals `prepare`'s fresh
-arrays.  `step` and `ContinuousBatcher` assemble through it; a fleet
-feeder's pinned double buffers (also `HostBatch` pairs) and a caller's own
-buffers go through `prepare`.  `step_prepared` returns a new logits tensor
-every tick.
+and handed out in turn by `next_pair`, which waits, where needed, for the
+pair's last copy to the card to land.  `stage` fills the next pair with a
+tick's frames (`HostBatch.fill`: of what the pair held, only the active
+lanes that get no frame now are zeroed); a fleet feeder fills it on its own
+thread (`repro_torch.serving.fleet.FrameFeeder`).  `step_prepared` copies
+a pair without blocking where it is pinned, records the pair's events
+after the copy, and refuses arrays that are not a pair of this pool's
+ring; it returns a new logits tensor every tick.
 
 **Tracing.**  Under the bound tracer's ``pool.step`` span, ``pool.upload``
-(args ``bytes``, ``pinned``, and ``staged``: the batch is a pair of the
-pool's ring) covers the batch's copy — a wait for the stream's earlier
-work, the previous replay, when the batch is pageable — and ``pool.replay``
-(arg ``k1``: the K1 launches the replays hold, from
-`CapturedStep.k1_per_replay`, 0 on the tick that builds the step) the
-blocks' steps and the concatenation, host enqueue only.  An instant
-``pool.stage_wait`` (arg ``waited_us``) marks a `stage` that had to wait
-for a ring pair's earlier copy to land.  An instant
-``pool.build`` (arg ``capture_s``) marks each block's build of its step.
+(args ``bytes``, ``pinned``, and ``staged``, always true: the batch is a
+pair of the pool's ring) covers the batch's copy, an enqueue from the
+pinned pair on a card, and ``pool.replay`` (arg ``k1``: the K1 launches
+the replays hold, from `CapturedStep.k1_per_replay`, 0 on the tick that
+builds the step) the blocks' steps and the concatenation, host enqueue
+only.  An instant ``pool.stage_wait`` (arg ``waited_us``) marks a
+`next_pair` that had to wait for a ring pair's earlier copy to land.  An
+instant ``pool.build`` (arg ``capture_s``) marks each block's build of its
+step.
 With an enabled wall-clock tracer on a CUDA pool, `bind_tracer` binds a
 `repro_torch.obs.device.DeviceSpans`: timing events before the upload,
 between upload and replay, and after the replay, recorded outside the
@@ -116,14 +114,14 @@ def host_frame(frame) -> np.ndarray:
 
 
 class HostBatch:
-    """A host ``(batch, active)`` pair that a tick is assembled into — a
-    pair of a pool's staging ring or of a fleet feeder's double buffers:
-    ``tensors``, pinned when ``pin`` (copies to a card then do not block),
-    and their numpy views ``batch`` / ``active``, which the host writes;
-    ``copied``, the event(s) of the last copy from them to the card, which
-    must have completed before the host rewrites them (None: nothing to
-    wait for); ``lanes``, the slots the pool's last `SessionPool.stage` into them
-    wrote."""
+    """A pair of a pool's staging ring: ``tensors``, a ``[P, *frame_shape]``
+    float32 batch and a ``[P]`` bool active mask, pinned when ``pin``
+    (copies to a card then do not block), and their numpy views ``batch`` /
+    ``active``, which the host writes; ``copied``, the events of the last
+    copy from them to the card, which must have completed before the host
+    rewrites them (None: nothing to wait for; `SessionPool.next_pair`
+    waits).  A lane is non-zero only where ``active`` is set: every writer
+    sets the two together."""
 
     def __init__(self, pool_size: int, frame_shape: Tuple[int, ...], pin: bool):
         self.tensors = (
@@ -132,7 +130,27 @@ class HostBatch:
         self.batch, self.active = (t.numpy() for t in self.tensors)
         self.pinned = pin
         self.copied = None
-        self.lanes: List[int] = []
+
+    def fill(self, frames: Sequence[Tuple[str, int, object]]) -> None:
+        """One tick's batch: each ``(stream id, lane, frame)`` of ``frames``
+        (a frame may carry a leading length-1 axis) into its lane, marked
+        active; every other lane zero and inactive.  Zeroes only the active
+        lanes that get no frame now.  Makes no CUDA call and reads no slot
+        bookkeeping, so a feeder thread may run it."""
+        lanes = {lane for _, lane, _ in frames}
+        stale = [lane for lane in np.flatnonzero(self.active).tolist() if lane not in lanes]
+        if stale:
+            self.batch[stale] = 0.0
+            self.active[stale] = False
+        shape = self.batch.shape[1:]
+        for sid, lane, frame in frames:
+            f = host_frame(frame)
+            if f.shape == (1, *shape):
+                f = f[0]
+            if f.shape != shape:
+                raise ValueError(f"stream {sid!r}: frame shape {f.shape} != {shape}")
+            self.batch[lane] = f
+            self.active[lane] = True
 
 
 class PoolFullError(RuntimeError):
@@ -272,9 +290,7 @@ class SessionPool:
             for i, dev in enumerate(devices)
         ]
         self._devices = list(dict.fromkeys(b.device for b in self._blocks))
-        # the events after the last non-blocking upload (None: it was synchronous)
-        self.last_upload: Optional[_Events] = None
-        # the staging ring (`stage`): two HostBatch pairs once used, the next one's index
+        # the staging ring (`next_pair`): two HostBatch pairs once used, the next one's index
         self._ring: List[HostBatch] = []
         self._flip = 0
         self._slots: List[Optional[str]] = [None] * pool_size
@@ -353,50 +369,25 @@ class SessionPool:
 
     # -- the hot path ------------------------------------------------------
 
-    def prepare(
-        self,
-        frames: Mapping[str, object],
-        out_batch: Optional[np.ndarray] = None,
-        out_active: Optional[np.ndarray] = None,
-    ) -> Tuple[np.ndarray, np.ndarray]:
-        """Host-side batch assembly: slot-scatter ``frames`` (numpy arrays
-        or tensors) into a ``[P, *frame_shape]`` float32 batch and a ``[P]``
-        bool active mask.  Pure numpy, no device work.  ``out_batch`` /
-        ``out_active`` reuse caller-owned buffers (the feeder's pinned
-        double buffers), zero-filled whole, instead of allocating."""
-        for sid in frames:
-            self._require(sid)
-        if out_batch is None:
-            out_batch = np.zeros((self.pool_size, *self.frame_shape), np.float32)
-        else:
-            out_batch.fill(0.0)
-        if out_active is None:
-            out_active = np.zeros((self.pool_size,), bool)
-        else:
-            out_active.fill(False)
-        self._scatter(frames, out_batch, out_active)
-        return out_batch, out_active
-
     def stage(self, frames: Mapping[str, object]) -> Tuple[np.ndarray, np.ndarray]:
-        """`prepare` into the next pair of the pool's staging ring (module
-        docstring): the same ``(batch, active)`` values, in arrays the pool
-        owns and rewrites two stagings later.  Waits, as an instant
-        ``pool.stage_wait``, if the pair's last copy to the card is still
-        in flight; zeroes only the lanes the pair wrote last time that get
-        no frame now.  `step_prepared` copies a staged pair without
-        blocking where it is pinned."""
-        slots = [self._slot_of[self._require(sid)] for sid in frames]
-        pair = self._next_pair()
-        stale = sorted(set(pair.lanes).difference(slots))
-        if stale:
-            pair.batch[stale] = 0.0
-            pair.active[stale] = False
-        pair.lanes = slots  # before the scatter: a frame it rejects leaves no lane unlisted
-        self._scatter(frames, pair.batch, pair.active)
+        """Host-side batch assembly: each admitted stream's frame of
+        ``frames`` (numpy arrays or tensors, ``[H, W, C]`` or with a leading
+        length-1 axis) into its slot's lane of the ring's next pair
+        (`next_pair`, `HostBatch.fill`), marked active; every other lane
+        zero and inactive.  Returns the pair's ``(batch, active)`` numpy
+        views, which the ring hands out again after its other pair.  No
+        device work; `step_prepared` copies them without blocking where
+        they are pinned."""
+        lanes = [(sid, self._slot_of[self._require(sid)], f) for sid, f in frames.items()]
+        pair = self.next_pair()
+        pair.fill(lanes)
         return pair.batch, pair.active
 
-    def _next_pair(self) -> HostBatch:
-        """The ring's next pair, once the last copy from it has landed."""
+    def next_pair(self) -> HostBatch:
+        """The ring's next pair, once the last copy from it has landed:
+        waits for it, as an instant ``pool.stage_wait``, if it is still in
+        flight.  `stage` fills the pair; a fleet feeder takes it on the
+        calling thread and fills it on its own."""
         if not self._ring:
             pin = self.device.type == "cuda"
             self._ring = [HostBatch(self.pool_size, self.frame_shape, pin) for _ in range(2)]
@@ -409,66 +400,39 @@ class SessionPool:
                                 waited_us=(time.perf_counter_ns() - t0) / 1e3)
         return pair
 
-    def _scatter(self, frames: Mapping[str, object], batch: np.ndarray,
-                 active: np.ndarray) -> None:
-        """Each admitted stream's frame into its slot's lane, marked active."""
-        for sid, f in frames.items():
-            f = host_frame(f)
-            if f.shape == (1, *self.frame_shape):
-                f = f[0]
-            if f.shape != self.frame_shape:
-                raise ValueError(
-                    f"stream {sid!r}: frame shape {f.shape} != {self.frame_shape}"
-                )
-            batch[self._slot_of[sid]] = f
-            active[self._slot_of[sid]] = True
-
-    def _upload(self, batch, active) -> None:
-        """Copy a host ``(batch, active)`` pair into the static device
-        inputs: without blocking from pinned memory, recording an event on
-        each device's stream after the copy (`last_upload`; a pair of the
-        staging ring keeps its events as ``copied`` and records them again
-        at its next upload), synchronously otherwise."""
+    def _upload(self, batch: np.ndarray, active: np.ndarray) -> None:
+        """Copy a pair of the staging ring into the static device inputs:
+        without blocking from pinned memory, then recording the pair's
+        events (``copied``) on each device's stream; synchronously
+        otherwise.  Arrays that are not a pair of this pool's ring are
+        refused."""
         with self.tracer.span("pool.upload", track=self.track) as span:
             pair = next((p for p in self._ring if batch is p.batch and active is p.active),
                         None)
-            if pair is not None:
-                (src_b, src_a), pinned = pair.tensors, pair.pinned
-            else:
-                src_b, src_a = torch.as_tensor(batch), torch.as_tensor(active)
-                want = (self.pool_size, *self.frame_shape)
-                if tuple(src_b.shape) != want or tuple(src_a.shape) != (self.pool_size,):
-                    raise ValueError(
-                        f"batch {tuple(src_b.shape)} / active {tuple(src_a.shape)} do not "
-                        f"fit the pool's {want} / ({self.pool_size},)"
-                    )
-                pinned = (self.device.type == "cuda" and src_b.is_pinned()
-                          and src_a.is_pinned())
-            span.set_args(bytes=src_b.nbytes + src_a.nbytes, pinned=pinned,
-                          staged=pair is not None)
+            if pair is None:
+                raise ValueError("step_prepared takes a (batch, active) pair from this "
+                                 "pool's stage(); these arrays are not one")
+            src_b, src_a = pair.tensors
+            span.set_args(bytes=src_b.nbytes + src_a.nbytes, pinned=pair.pinned, staged=True)
             self._device_spans.mark(0)
             for b in self._blocks:
-                b.frames.copy_(src_b[b.lo:b.lo + b.size], non_blocking=pinned)
-                b.active.copy_(src_a[b.lo:b.lo + b.size], non_blocking=pinned)
-            self.last_upload = None
-            if pinned:
-                events = pair.copied if pair is not None else None
-                if events is None:
-                    events = _Events(torch.cuda.Event() for _ in self._devices)
-                for event, dev in zip(events, self._devices):
+                b.frames.copy_(src_b[b.lo:b.lo + b.size], non_blocking=pair.pinned)
+                b.active.copy_(src_a[b.lo:b.lo + b.size], non_blocking=pair.pinned)
+            if pair.pinned:
+                if pair.copied is None:
+                    pair.copied = _Events(torch.cuda.Event() for _ in self._devices)
+                for event, dev in zip(pair.copied, self._devices):
                     event.record(torch.cuda.current_stream(dev))
-                self.last_upload = events
-            if pair is not None:
-                pair.copied = self.last_upload
 
     def step_prepared(self, batch: np.ndarray, active: np.ndarray) -> torch.Tensor:
-        """The device half of a tick: copy an assembled ``(batch, active)``
-        pair (see `prepare` and `stage`) into the static inputs, run the
-        step (a graph replay once captured) of every block, and return the
-        full ``[P, n_classes]`` logits as a new tensor, in slot order on the
-        first block's device — callers map slots back to stream ids.  A
-        pageable host buffer has been read when this returns; a pinned one
-        once `last_upload` has completed."""
+        """The device half of a tick: copy a pair of the staging ring
+        (`stage`) into the static inputs, run the step (a graph replay once
+        captured) of every block, and return the full ``[P, n_classes]``
+        logits as a new tensor, in slot order on the first block's device —
+        callers map slots back to stream ids.  A pinned pair has been read
+        once its ``copied`` events have completed (`next_pair` waits for
+        them); raises ValueError for arrays that are not a pair of this
+        pool's ring."""
         tr, track, timed = self.tracer, self.track, self._device_spans
         with tr.span("pool.step", track=track, pool_size=self.pool_size):
             timed.resolve()

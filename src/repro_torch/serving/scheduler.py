@@ -19,17 +19,17 @@ latency (tagged with the pool size it ran at).  On a CUDA pool a tick only
 *enqueues* device work — the frame batch's copy, one replay of the pool's
 captured step, one copy of its logits — apart from two waits: where streams
 depart their logits reach the host in ONE device-to-host copy per tick, and
-the batch is assembled into the pool's pinned staging ring (`SessionPool.stage`;
-a fleet feeder's pinned buffer when it has one), whose pair waits for its
-copy of two ticks ago where that has not landed — so a tick's host latency
-is enqueue time plus those waits.
+the batch is assembled into the pool's pinned staging ring (by
+`SessionPool.stage`, or by a fleet feeder), whose pair waits for its copy of
+two ticks ago where that has not landed — so a tick's host latency is
+enqueue time plus those waits.
 
 Fleet hooks (used by `repro_torch.serving.fleet`, inert otherwise):
 
-  * ``feeder`` — an async ingestion double buffer (`fleet.FrameFeeder`):
-    when present, `tick()` consumes the batch the feeder assembled during
-    the *previous* step and kicks off assembly of the next one, so host
-    ingestion overlaps the card's work.
+  * ``feeder`` — async ingestion (`fleet.FrameFeeder`): when present,
+    `tick()` consumes the batch the feeder assembled, in the pool's staging
+    ring, during the *previous* step and kicks off assembly of the next one
+    into the ring's next pair, so host ingestion overlaps the card's work.
   * `swap_pool(new_pool)` — migrate every in-flight stream into another
     (typically differently-sized) pool via evict/admit-with-state, which
     is how autoscaling rides the bucket ladder with bit-identical logits.
@@ -51,8 +51,8 @@ park / wake instants and the spans that cover a tick: ``tick`` around it,
 ``gate.park`` / ``gate.scan``, ``admit``, ``assemble`` and ``advance`` (the
 per-slot outputs, cursor advance, evictions and departures; arg
 ``departures``) are host work; ``step`` holds the pool's ``pool.step``,
-whose ``pool.upload`` waits for the previous replay only when the batch is
-pageable and whose ``pool.replay`` only enqueues; ``flush`` (arg ``rows``;
+whose ``pool.upload`` (from the pool's pinned staging ring) and
+``pool.replay`` only enqueue; ``flush`` (arg ``rows``;
 on ticks with departures only) is the departures' device-to-host copy and
 its wait for this tick's replay.  On a CUDA pool under a wall-clock tracer
 the pool adds ``dev.upload`` / ``dev.replay``, the card's own time of its
@@ -479,9 +479,11 @@ class ContinuousBatcher:
                     self._gate_finish(sid, req)
 
     def _assemble(self) -> Tuple[np.ndarray, np.ndarray]:
-        """The tick's (batch, active) pair: the feeder's prefetched buffer
-        when one is valid (patched for admissions/cancellations since the
-        prefetch), else the pool's staging ring (`SessionPool.stage`)."""
+        """The tick's (batch, active) pair of the pool's staging ring: the
+        feeder's prefetched pair when one is valid (patched for
+        admissions/cancellations since the prefetch; a lane's frame and its
+        active mark change together, as `HostBatch.fill` requires), else
+        `SessionPool.stage`."""
         prefetch = self.feeder.take() if self.feeder is not None else None
         if prefetch is None:
             return self.pool.stage({
@@ -514,7 +516,7 @@ class ContinuousBatcher:
             (sid, self.pool.slot_of(sid), req.frames, self._next_frame[sid])
             for sid, req in self._inflight.items()
         ]
-        self.feeder.prefetch(self.pool.pool_size, self.pool.frame_shape, items)
+        self.feeder.prefetch(self.pool, items)
 
     def tick(self) -> Dict[str, torch.Tensor]:
         """One scheduling round: admit -> step -> evict.  Returns the
@@ -548,8 +550,6 @@ class ContinuousBatcher:
                 batch, active = self._assemble()
             with tr.span("step", track=track, streams=len(stepping)):
                 logits = self.pool.step_prepared(batch, active)
-            if self.feeder is not None:
-                self.feeder.copied(self.pool.last_upload)
             with tr.span("advance", track=track) as span:
                 slots = {sid: self.pool.slot_of(sid) for sid in stepping}
                 out = {sid: logits[slot] for sid, slot in slots.items()}

@@ -451,21 +451,27 @@ class TestFleetRouter:
 
 
 # ---------------------------------------------------------------------------
-# FrameFeeder: the double-buffer prefetch unit
+# FrameFeeder: the prefetch unit, filling its pool's staging ring
 # ---------------------------------------------------------------------------
 
 class TestFrameFeeder:
-    SHAPE = (2, 2, 1)
+    SHAPE = (4, 4, 2)  # tiny_a's frames
+
+    @pytest.fixture
+    def pool(self, tiny):
+        """A small pool whose ring the feeder fills (a prefetch reads no slot
+        bookkeeping, so nothing need be admitted)."""
+        return lambda size: SessionPool(tiny["tiny_a"], size, backend="ref")
 
     def _items(self, n, base=0.0):
         return [(f"s{i}", i, np.full((1, *self.SHAPE), base + i, np.float32), 0)
                 for i in range(n)]
 
     @pytest.mark.parametrize("mode", ["thread", "sync"])
-    def test_prefetch_take_round_trip(self, mode):
-        feeder = FrameFeeder(mode=mode)
+    def test_prefetch_take_round_trip(self, mode, pool):
+        feeder, pool = FrameFeeder(mode=mode), pool(4)
         assert feeder.take() is None
-        feeder.prefetch(4, self.SHAPE, self._items(3))
+        feeder.prefetch(pool, self._items(3))
         batch, active, covered = feeder.take()
         assert batch.shape == (4, *self.SHAPE) and batch.dtype == np.float32
         assert covered == {"s0": 0, "s1": 1, "s2": 2}
@@ -475,27 +481,29 @@ class TestFrameFeeder:
         assert feeder.threaded == (mode == "thread")
         feeder.close()
 
-    def test_tensor_clips_are_brought_to_the_host(self):
+    def test_tensor_clips_are_brought_to_the_host(self, pool):
         feeder = FrameFeeder(mode="sync")
-        feeder.prefetch(1, self.SHAPE, [("s", 0, torch.full((1, *self.SHAPE), 3.0), 0)])
+        feeder.prefetch(pool(1), [("s", 0, torch.full((1, *self.SHAPE), 3.0), 0)])
         batch, _, _ = feeder.take()
         assert isinstance(batch, np.ndarray) and (batch == 3.0).all()
         feeder.close()
 
-    def test_double_buffers_alternate_per_prefetch(self):
-        feeder = FrameFeeder(mode="sync")
-        feeder.prefetch(2, self.SHAPE, self._items(1, base=5.0))
+    def test_double_buffers_alternate_per_prefetch(self, pool):
+        """Prefetches alternate the pool's two ring pairs."""
+        feeder, pool = FrameFeeder(mode="sync"), pool(2)
+        feeder.prefetch(pool, self._items(1, base=5.0))
         first, _, _ = feeder.take()
-        feeder.prefetch(2, self.SHAPE, self._items(1, base=9.0))
+        feeder.prefetch(pool, self._items(1, base=9.0))
         second, _, _ = feeder.take()
         assert first is not second and (first[0] == 5.0).all() and (second[0] == 9.0).all()
-        feeder.prefetch(2, self.SHAPE, self._items(1, base=7.0))
+        assert first is pool._ring[0].batch and second is pool._ring[1].batch
+        feeder.prefetch(pool, self._items(1, base=7.0))
         assert feeder.take()[0] is first
         feeder.close()
 
-    def test_invalidate_and_unknown_mode(self):
+    def test_invalidate_and_unknown_mode(self, pool):
         feeder = FrameFeeder(mode="thread")
-        feeder.prefetch(2, self.SHAPE, self._items(2))
+        feeder.prefetch(pool(2), self._items(2))
         feeder.invalidate()
         assert feeder.take() is None
         feeder.close()

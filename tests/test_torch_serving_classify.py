@@ -190,12 +190,12 @@ def test_consecutive_batches_use_the_two_host_batches_in_turn(smoke, monkeypatch
     monkeypatch.setattr(BatchClassifier, "_assemble", spy)
     while clf.pending:
         held = clf._inflight
-        kept = None if held is None else clf._hosts[held.slot].batch.copy()
+        kept = None if held is None else clf._images_np[held.slot].copy()
         clf.tick()
         if held is not None:  # flushed this tick, and not rewritten in it
-            assert np.array_equal(clf._hosts[held.slot].batch, kept)
+            assert np.array_equal(clf._images_np[held.slot], kept)
     assert written == [0, 1, 0, 1, 0, 1]
-    assert clf._hosts[0].batch is not clf._hosts[1].batch
+    assert clf._images_np[0] is not clf._images_np[1]
 
 
 def test_the_pool_refuses_a_spatial_net_and_the_classifier_a_temporal_one(smoke):

@@ -1,8 +1,7 @@
 """The serving step over static tensors — `SessionPool(jit=...)`,
-`StreamSession(jit=...)`, `prepare(out_batch, out_active)`, the pool's
-staging ring (`stage`), the in-place slot surgery, the feeder's and the
-ring's copy events and `stream_tcn_apply` — held against the reference on
-the CPU.
+`StreamSession(jit=...)`, the pool's staging ring (`stage`, `next_pair`,
+the fleet feeder's prefetch into it) and its copy events, the in-place slot
+surgery and `stream_tcn_apply` — held against the reference on the CPU.
 
 The pool and the session keep their state in tensors whose addresses never
 change (on the card a captured CUDA graph reads and writes them there); on
@@ -200,7 +199,7 @@ def test_returned_logits_do_not_change_on_the_next_tick(nano, jit):
     pool.admit("a"); pool.admit("b")
     kept = []
     for t in range(4):
-        logits = pool.step_prepared(*pool.prepare({"a": frames[0, t], "b": frames[1, t]}))
+        logits = pool.step_prepared(*pool.stage({"a": frames[0, t], "b": frames[1, t]}))
         kept.append((logits, logits.clone()))
     for logits, copy in kept:
         assert torch.equal(logits, copy)
@@ -208,39 +207,62 @@ def test_returned_logits_do_not_change_on_the_next_tick(nano, jit):
 
 
 def test_prepare_writes_into_the_callers_buffers_as_the_reference(nano):
+    """The port's `stage` assembles what the reference pool's `prepare`
+    writes into the caller's buffers, for the same admissions and
+    evictions, a tensor frame with a leading axis among them."""
     ref, dep = nano
     frames = clips_for(dep.graph, 3, 1, seed=3)[:, 0]
     pool_t, pool_j = SessionPool(dep, 4), SessionPoolJ(ref, 4, backend="ref")
     for sid in ("a", "b", "c"):
         assert pool_t.admit(sid) == pool_j.admit(sid)
     pool_t.evict("b"); pool_j.evict("b")
-    batch = {"a": frames[0], "c": torch.from_numpy(frames[2][None])}
-    out_b = np.full((4, *pool_t.frame_shape), 7.0, np.float32)
-    out_a = np.ones((4,), bool)
-    got_b, got_a = pool_t.prepare(batch, out_batch=out_b, out_active=out_a)
-    assert got_b is out_b and got_a is out_a
+    got_b, got_a = pool_t.stage({"a": frames[0], "c": torch.from_numpy(frames[2][None])})
     want_b, want_a = pool_j.prepare({"a": frames[0], "c": frames[2][None]},
-                                    out_batch=np.full_like(out_b, 7.0),
+                                    out_batch=np.full_like(got_b, 7.0),
                                     out_active=np.ones((4,), bool))
     exact(got_b, want_b); exact(got_a, want_a)
-    fresh_b, fresh_a = pool_t.prepare(batch)
-    exact(fresh_b, want_b); exact(fresh_a, want_a)
 
 
 def test_step_prepared_rejects_a_misshaped_batch(nano):
+    """`step_prepared` takes only a pair of this pool's ring: a misshaped
+    batch, fresh arrays of the right shape and another pool's staged pair
+    are refused, naming `stage`."""
     _, dep = nano
-    pool = SessionPool(dep, 2)
-    with pytest.raises(ValueError, match="do not fit"):
-        pool.step_prepared(np.zeros((1, *pool.frame_shape), np.float32), np.zeros(2, bool))
+    pool, other = SessionPool(dep, 2), SessionPool(dep, 2)
+    pool.admit("a"); other.admit("a")
+    frame = clips_for(dep.graph, 1, 1, seed=5)[0, 0]
+    staged = pool.stage({"a": frame})
+    for batch, active in (
+            (np.zeros((1, *pool.frame_shape), np.float32), np.zeros(2, bool)),
+            (staged[0].copy(), staged[1].copy()),
+            (staged[0], np.zeros(2, bool)),
+            other.stage({"a": frame})):
+        with pytest.raises(ValueError, match=r"stage\(\)"):
+            pool.step_prepared(batch, active)
+    assert pool.trace_count == 0
+    pool.step_prepared(*staged)
+    assert pool.trace_count == 1
 
 
 # ---------------------------------------------------------------------------
 # the pool's staging ring
 # ---------------------------------------------------------------------------
 
+def _assembled(pool, frames):
+    """A tick's ``(batch, active)`` assembled from scratch in numpy: each
+    stream's frame in its slot's lane, marked active; every other lane zero."""
+    batch = np.zeros((pool.pool_size, *pool.frame_shape), np.float32)
+    active = np.zeros((pool.pool_size,), bool)
+    for sid, frame in frames.items():
+        frame = frame.numpy() if isinstance(frame, torch.Tensor) else frame
+        batch[pool.slot_of(sid)] = frame.reshape(pool.frame_shape)
+        active[pool.slot_of(sid)] = True
+    return batch, active
+
+
 def test_staged_batch_equals_prepare_through_churn_and_readmission(nano):
     """`stage` hands out the ring's two pairs in turn, and each holds what
-    `prepare` assembles from scratch: a lane that went idle reads zero and
+    a from-scratch assembly holds: a lane that went idle reads zero and
     inactive, and a slot re-admitted to another stream carries its frame."""
     _, dep = nano
     frames = clips_for(dep.graph, 5, 8, seed=11)
@@ -262,27 +284,24 @@ def test_staged_batch_equals_prepare_through_churn_and_readmission(nano):
         for sid in admitted:
             pool.admit(sid)
         batch = {sid: frames["abcde".index(sid), k] for sid in stepping}
-        if "b" in batch:  # a tensor with a leading axis, as `prepare` takes it
+        if "b" in batch:  # a tensor with a leading axis, as `stage` takes it
             batch["b"] = torch.from_numpy(batch["b"][None])
         got_b, got_a = pool.stage(batch)
-        want_b, want_a = pool.prepare(batch)
+        want_b, want_a = _assembled(pool, batch)
         exact(got_b, want_b); exact(got_a, want_a)
         idle = sorted(set(range(4)) - {pool.slot_of(sid) for sid in stepping})
         assert not got_a[idle].any() and not got_b[idle].any()
-        own_b = np.full_like(want_b, 7.0)  # the caller's buffers stay the caller's
-        assert pool.prepare(batch, out_batch=own_b, out_active=np.ones(4, bool))[0] is own_b
-        exact(own_b, want_b)
         pool.step_prepared(got_b, got_a)
         handed.append(got_b)
-    assert not any(p.pinned for p in pool._ring) and pool.last_upload is None
+    assert not any(p.pinned or p.copied is not None for p in pool._ring)
     assert all(b is pool._ring[k % 2].batch for k, b in enumerate(handed))
-    # a frame the scatter rejects leaves the pair it was writing consistent
+    # a frame the fill rejects leaves the pair it was writing consistent
     with pytest.raises(ValueError, match="frame shape"):
         pool.stage({"a": frames[0, 0], "b": np.zeros((3, 3), np.float32)})
     pool.stage({"d": frames[3, 1]})
     for batch in ({"d": frames[3, 2]}, {"a": frames[0, 3], "b": frames[1, 3]}):
         got_b, got_a = pool.stage(batch)
-        want_b, want_a = pool.prepare(batch)
+        want_b, want_a = _assembled(pool, batch)
         exact(got_b, want_b); exact(got_a, want_a)
 
 
@@ -464,22 +483,56 @@ class _Event:
         self.done = True
 
 
-def test_feeder_waits_on_a_buffers_copy_event_before_refilling_it():
-    shape = (2, 2, 1)
-    items = lambda v: [("s", 0, np.full((1, *shape), v, np.float32), 0)]
+def test_feeder_waits_on_a_buffers_copy_event_before_refilling_it(nano):
+    """A feeder prefetch takes the pool's next ring pair: where that pair's
+    last copy is in flight it waits for it once, through the pool, with
+    one ``pool.stage_wait``."""
+    _, dep = nano
+    frames = clips_for(dep.graph, 1, 4, seed=14)
+    tracer = Tracer(clock="tick")
+    pool = SessionPool(dep, 2, tracer=tracer)
+    pool.admit("s")
+    items = lambda t: [("s", pool.slot_of("s"), frames[0], t)]
     feeder = FrameFeeder(mode="sync")
-    feeder.prefetch(2, shape, items(1.0))
-    first, _, _ = feeder.take()
-    ev = _Event()
-    feeder.copied(ev)                     # the copy from `first` is in flight
-    feeder.prefetch(2, shape, items(2.0))  # the other buffer: no wait
-    assert ev.waited == 0
+    first, _ = pool.stage({"s": frames[0, 0]})
+    pool._ring[0].copied = in_flight = _Event(done=False)  # the copy from `first`
+    feeder.prefetch(pool, items(1))  # the other pair: no wait
+    assert in_flight.waited == 0
     feeder.take()
-    feeder.copied(None)                   # a synchronous copy
-    feeder.prefetch(2, shape, items(3.0))  # `first` again: waits first
-    assert ev.waited == 1 and feeder.take()[0] is first and (first[0] == 3.0).all()
-    feeder.prefetch(2, shape, items(4.0))
-    assert ev.waited == 1
+    feeder.prefetch(pool, items(2))  # `first` again: waits for its copy first
+    assert in_flight.waited == 1
+    batch, active, covered = feeder.take()
+    assert batch is first and covered == {"s": pool.slot_of("s")}
+    exact(batch, _assembled(pool, {"s": frames[0, 2]})[0])
+    feeder.prefetch(pool, items(3))
+    pool.stage({"s": frames[0, 0]})  # landed now: no second wait
+    assert in_flight.waited == 1
+    waits = [e for e in tracer.events() if e.name == "pool.stage_wait"]
+    assert len(waits) == 1 and waits[0].args["waited_us"] >= 0
+    feeder.close()
+
+
+def test_a_stage_after_an_invalidated_prefetch_leaves_no_stale_lane(nano):
+    """The feeder fills a pair for three streams, the prefetch is
+    invalidated, one stream is cancelled, and the later `stage` into the
+    same pair holds exactly a from-scratch assembly."""
+    _, dep = nano
+    frames = clips_for(dep.graph, 3, 3, seed=15)
+    pool = SessionPool(dep, 4)
+    for sid in ("a", "b", "c"):
+        pool.admit(sid)
+    feeder = FrameFeeder(mode="thread")
+    feeder.prefetch(pool, [(sid, pool.slot_of(sid), frames[i], 1)
+                           for i, sid in enumerate("abc")])
+    feeder.invalidate()
+    assert feeder.take() is None
+    pool.evict("b")
+    pool.stage({"a": frames[0, 0], "c": frames[2, 0]})  # the ring's other pair
+    tick = {"a": frames[0, 2], "c": frames[2, 2]}
+    got_b, got_a = pool.stage(tick)  # the pair the feeder filled
+    assert got_b is pool._ring[0].batch
+    want_b, want_a = _assembled(pool, tick)
+    exact(got_b, want_b); exact(got_a, want_a)
     feeder.close()
 
 
@@ -576,30 +629,30 @@ def test_dead_sessions_collected_during_a_capture_do_not_break_it():
 
 
 @pytest.mark.gpu
-def test_staged_batcher_equals_a_pageable_one_on_the_card():
+def test_a_staged_batcher_on_the_card_equals_lone_sessions():
     """A churned batcher on a CUDA pool assembles through the pinned ring
-    and copies without blocking; its logits equal, bit for bit, the same
-    run's through pageable `prepare` and a synchronous copy."""
+    and copies without blocking: every ``pool.upload`` is pinned and
+    staged, and each stream's logits equal, bit for bit, a lone
+    `StreamSession` fed its clip."""
     dep, _ = _cuda_pair("dvs_cnn_tcn_smoke")
     clips = clips_for(dep.graph, 9, 8, seed=13)
-    out, uploads = {}, {}
-    for staged in (True, False):
-        tracer = Tracer(clock="tick")
-        pool = dep.serve(3, backend="fused", tracer=tracer)
-        if not staged:
-            pool.stage = pool.prepare
-        bat = ContinuousBatcher(pool, tracer=tracer)
-        for i in range(9):  # 2-8 frames, more streams than slots: slots refill
-            bat.submit(StreamRequest(f"s{i}", clips[i, :2 + (5 * i) % 7], arrival=i // 2))
-        out[staged] = {r.stream_id: r.logits for r in bat.run()}
-        uploads[staged] = {tuple(sorted(e.args.items())) for e in tracer.events()
-                           if e.name == "pool.upload"}
-    assert out[True].keys() == out[False].keys() and len(out[True]) == 9
-    for sid, logits in out[False].items():
-        np.testing.assert_array_equal(out[True][sid], logits)
+    lengths = [2 + (5 * i) % 7 for i in range(9)]
+    tracer = Tracer(clock="tick")
+    bat = ContinuousBatcher(dep.serve(3, backend="fused", tracer=tracer), tracer=tracer)
+    for i in range(9):  # 2-8 frames, more streams than slots: slots refill
+        bat.submit(StreamRequest(f"s{i}", clips[i, :lengths[i]], arrival=i // 2))
+    out = {r.stream_id: r.logits for r in bat.run()}
+    assert len(out) == 9
+    for i in range(9):
+        session = dep.stream(batch=1, backend="fused")
+        clip = torch.from_numpy(clips[i:i + 1, :lengths[i]]).cuda()
+        for t in range(lengths[i]):
+            lone = session.step(clip[:, t])
+        np.testing.assert_array_equal(out[f"s{i}"], lone.cpu().numpy()[0])
+    uploads = {tuple(sorted(e.args.items())) for e in tracer.events()
+               if e.name == "pool.upload"}
     nbytes = 3 * int(np.prod(dep.graph.input_hw)) * dep.graph.input_ch * 4 + 3
-    assert uploads[True] == {(("bytes", nbytes), ("pinned", True), ("staged", True))}
-    assert uploads[False] == {(("bytes", nbytes), ("pinned", False), ("staged", False))}
+    assert uploads == {(("bytes", nbytes), ("pinned", True), ("staged", True))}
 
 
 @pytest.mark.gpu
