@@ -10,7 +10,8 @@ launch shapes of the port's paths:
   * K1, `csrc/ternary_conv2d.cu` (``TCONV_ABLATE_*``): operand staging
     (the `cp.async` copies of the patch and the packed weights), fragment
     decode (packed byte -> trits in registers), the mma walk, the epilogue
-    (partial-tile sum, scale, ternarize, pool, store) — on a pool tick's
+    (partial-tile sum, scale, ternarize, pool, store) of its mma.sync route
+    (route 0; the wgmma route has no ablation macros) — on a pool tick's
     launch shapes at pool size 8, fused int8 variant;
   * K2, `csrc/ternary_matmul.cu` (``TMM_ABLATE_*``): staging, fragment
     decode, the mma walk, the cross-split reduction through distributed
@@ -90,7 +91,7 @@ def build_variants(build, source: str, prefix: str):
 
 def ablate_conv(libs, stream) -> list:
     from repro_torch.core.ternary import pack_ternary
-    from repro_torch.kernels.ternary_conv2d import _bind, conv_plan
+    from repro_torch.kernels.ternary_conv2d import _bind, _mma_plan
 
     fns = {name: _bind(ctypes.CDLL(str(lib))) for name, lib in libs.items()}
     gen = torch.Generator().manual_seed(0)
@@ -103,7 +104,7 @@ def ablate_conv(libs, stream) -> list:
         thr = torch.ones(c_out, device="cuda")
         p = max(pool, 1)
         out = torch.empty((BATCH, h // p, w // p, c_out), dtype=torch.int8, device="cuda")
-        plan = conv_plan(BATCH, h, w, c_in, c_out, 3, 3, pool, dt)
+        plan = _mma_plan(BATCH, h, w, c_in, c_out, 3, 3, pool, dt)  # the ablated route
         row = {"kernel": "ternary_conv2d", "shape": name, "tile": [plan.tile_h, plan.tile_w],
                "blocks": plan.blocks}
         for variant, fn in fns.items():

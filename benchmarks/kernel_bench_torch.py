@@ -29,6 +29,11 @@ regime), and ``max_err_float`` the error on Gaussian float32 inputs.  The
 ``weight_bytes_*`` columns record the 8x table-size reduction of the packed
 format.  Inputs come from ``--seed`` through `numpy.random.default_rng`.
 
+Beside the reference's cells, the full run has batch-256 conv cells on int8
+trit activations, the input of every served layer after the first (x and the
+dense yardstick's float copy of it are the ternary data; ``max_err_float``
+is then the error on those inputs): at that size K1 takes its wgmma route.
+
     python3 benchmarks/kernel_bench_torch.py                 # full cells -> BENCH_kernels_torch.json
     python3 benchmarks/kernel_bench_torch.py --smoke         # tiny cells -> BENCH_kernels_torch.smoke.json
     python3 benchmarks/kernel_bench_torch.py --smoke --device cpu --out /tmp/k.json
@@ -74,6 +79,9 @@ FULL_MATMULS = [(512, 2048, 512)]
 SMOKE_MATMULS = [(128, 512, 128)]
 FULL_CONVS = [(1, 32, 96, 96, 0), (4, 32, 96, 96, 0), (1, 32, 96, 96, 2)]
 SMOKE_CONVS = [(1, 16, 8, 8, 0), (2, 16, 8, 8, 2)]
+# the port's own cells, on int8 trit activations: cifar10_tnn's second conv
+# at the classifier's batch, unfused and as the whole fused layer
+FULL_CONVS_INT8 = [(256, 32, 96, 96, 0), (256, 32, 96, 96, 2)]
 REPEATS, SMOKE_REPEATS = 30, 7  # interleaved timing rounds
 LAUNCHES = 50  # calls per timed sample on the card
 THRESHOLD = 0.5
@@ -214,11 +222,17 @@ def bench_matmul(m: int, k: int, n: int, repeats: int, dev: torch.device,
 
 
 def bench_conv(b: int, hw: int, cin: int, cout: int, pool: int, repeats: int,
-               dev: torch.device, seed: int = 0) -> dict:
+               dev: torch.device, seed: int = 0, trits: bool = False) -> dict:
+    """One conv cell; with ``trits`` the packed and plain versions take int8
+    trit activations (and the dense yardstick the same values in float32)."""
     rng = np.random.default_rng([seed, b, hw, cin, cout, pool])
     x = _tensor(rng.standard_normal((b, hw, hw, cin)), dev)
     w = _tensor(rng.standard_normal((3, 3, cin, cout)), dev)
     xt = _tensor(np.sign(rng.standard_normal((b, hw, hw, cin))), dev)
+    xk = x  # the packed and plain versions' input
+    if trits:
+        x = xt
+        xt = xk = xt.to(torch.int8)
     wp, sc = quantize_pack_conv_weights(w)
     # OIHW weights in channels-last memory: with x's NHWC memory read as
     # NCHW, the dense yardstick pays no layout permutes
@@ -235,11 +249,14 @@ def bench_conv(b: int, hw: int, cin: int, cout: int, pool: int, repeats: int,
             y = F.max_pool2d(t, pool).to(torch.int8)
         return y.permute(0, 2, 3, 1)
 
-    kw = dict(fuse_ternary=True, fuse_pool=pool, out_dtype=torch.int8) if fused else {}
+    if fused:
+        kw = dict(fuse_ternary=True, fuse_pool=pool, out_dtype=torch.int8)
+    else:  # the float32 accumulator times the scale, also for int8 x
+        kw = dict(out_dtype=torch.float32) if trits else {}
     times = _interleaved_time({
         **{f"dense_{s}": _dense_under(dense, s) for s in DENSE_SETTINGS},
-        "packed": lambda: ternary_conv2d(x, wp, sc, **kw),
-        "plain": lambda: ternary_conv2d_native(x, wp, sc, thr, **kw),
+        "packed": lambda: ternary_conv2d(xk, wp, sc, **kw),
+        "plain": lambda: ternary_conv2d_native(xk, wp, sc, thr, **kw),
     }, repeats, dev)
 
     bit_exact = bool(torch.equal(ternary_conv2d(xt, wp, sc, **kw),
@@ -247,7 +264,8 @@ def bench_conv(b: int, hw: int, cin: int, cout: int, pool: int, repeats: int,
     if fused:
         err = 0.0 if bit_exact else float("inf")  # int8 outputs: exactness only
     else:
-        err = float((ternary_conv2d(x, wp, sc) - ternary_conv2d_ref(x, wp, sc)).abs().max())
+        err = float((ternary_conv2d(xk, wp, sc, **kw)
+                     - ternary_conv2d_ref(xk, wp, sc, **kw)).abs().max())
     tag = f"ternary_conv2d_{b}x{hw}x{hw}x{cin}->{cout}" + (f"_fused_pool{pool}" if fused else "")
     return _row(tag, "conv2d_fused" if fused else "conv2d",
                 times, bit_exact, err, _traffic((3, 3, cin, cout), axis=2))
@@ -265,6 +283,9 @@ def run(args) -> int:
             results.append(bench_matmul(m, k, n, repeats, dev, args.seed))
         for b, hw, cin, cout, pool in convs:
             results.append(bench_conv(b, hw, cin, cout, pool, repeats, dev, args.seed))
+        for b, hw, cin, cout, pool in ([] if args.smoke else FULL_CONVS_INT8):
+            results.append(bench_conv(b, hw, cin, cout, pool, repeats, dev, args.seed,
+                                      trits=True))
 
     failures = []
     for r in results:

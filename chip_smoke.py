@@ -63,7 +63,9 @@ line):
                 tolerance 0: ternary/dyadic data sums exactly in float32) at
                 every launch shape of the serving path for pool size 8 and
                 batch 1, all variants and both input types, plus 1x1, 5x5,
-                ragged C_out and odd H, W; and within rtol=atol=1e-4 on
+                ragged C_out and odd H, W, and the eight launches of a
+                ``cifar10_tnn`` step at batch 256 (seven on K1's wgmma
+                route, which must take them); and within rtol=atol=1e-4 on
                 Gaussian float32 x (all three bf16 terms in use) at conv0,
                 tcn_d1 and the 5x5 stem; K2, the packed-ternary matmul ==
                 its plain version == `ternary_matmul_ref` (`torch.equal`) on
@@ -75,13 +77,16 @@ line):
                 both kernels launched 8 times on the same Gaussian inputs
                 give the same bits (no atomics, fixed reduction order).
                 Then times each kernel, its plain version and a library
-                yardstick
+                yardstick (K1 over a pool-8 tick's 9 launches and over a
+                ``cifar10_tnn`` step's 8 at batch 256, each launch with its
+                bound and route)
   4. serve      init -> quantize(calib) -> 16 streams x 8 frames, staggered
                 arrivals, through the pool, whose step is captured once as a
                 CUDA graph and replayed every later tick; gates: finite
                 logits, all streams completed, the pool's `trace_count` 1
                 (one capture), 9 K1 launches per pool tick (the eager first
-                tick's and the graph's on every replay), the same run with
+                tick's and the graph's on every replay; on the wgmma route
+                as many as `conv_plan` routes there), the same run with
                 ``jit=False`` bit-equal per stream, pooled == lone
                 `StreamSession` (captured) == lone `StreamSession` (eager)
                 bit for bit, fused == ref on the card.  On
@@ -95,7 +100,7 @@ line):
                 images; gates: every request answered with one row per
                 image, each row == the eager fused forward and the plain
                 (``ref``) forward of its image bit for bit, one capture,
-                8 K1 launches in each replay
+                8 K1 launches in each replay, 7 of them on the wgmma route
   5. quickstart `repro_torch.quickstart` on the card (exit 0, >= 1 K2 launch);
                 fused == kernel == ref == bitsim on two full-width
                 ``dvs_cnn_tcn`` clips and a bitsim stream == its batch
@@ -297,6 +302,7 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {torch.int8: 1979e12, torch.bfloat16: 989e12}
 
 POOL = 8
+POOL64 = 64  # the pool of dvs_pool64_closed: 2 of its tick's 9 launches on K1's wgmma route
 REPEAT_LAUNCHES = 8  # launches on the same inputs that must give the same bits
 # K1 shapes whose float32 route is held on Gaussian x, where every bf16 term counts
 K1_GAUSSIAN = ("conv0", "tcn_d1", "5x5_stem")
@@ -416,6 +422,19 @@ MAIN_PATH_SHAPES = [
     ("tcn_d4", 7, 4, 96, 96, 3, 0, torch.int8),
     ("tcn_d8", 4, 8, 96, 96, 3, 0, torch.int8),
 ]
+# (name, H, W, C_in, C_out, K, pool, input dtype) — the eight launches of one
+# cifar10_tnn step at the classifier's batch CLASSIFY_BATCH (conv1's 3 input
+# channels padded to 4); the seven int8 ones take K1's wgmma route
+CIFAR_SHAPES = [
+    ("c_conv1", 32, 32, 4, 96, 3, 0, torch.float32),
+    ("c_conv2", 32, 32, 96, 96, 3, 2, torch.int8),
+    ("c_conv3", 16, 16, 96, 96, 3, 0, torch.int8),
+    ("c_conv4", 16, 16, 96, 96, 3, 0, torch.int8),
+    ("c_conv5", 16, 16, 96, 96, 3, 2, torch.int8),
+    ("c_conv6", 8, 8, 96, 96, 3, 0, torch.int8),
+    ("c_conv7", 8, 8, 96, 96, 3, 0, torch.int8),
+    ("c_conv8", 8, 8, 96, 96, 3, 2, torch.int8),
+]
 # shapes off the main path that must be right all the same
 EXTRA_SHAPES = [
     ("1x1", 16, 16, 64, 64, 1, 0),        # kws_tcn pointwise
@@ -505,10 +524,14 @@ def make_case(gen, b, h, w, c_in, c_out, k, in_dtype, dev):
 
 def check_kernel(dev):
     """Phase 3a: kernel == plain version, tolerance 0, and within 1e-4 on
-    Gaussian float32 x.  Returns the largest absolute difference seen on
-    each (0.0 when every exact case is equal)."""
+    Gaussian float32 x; every launch on the route `conv_plan` picks (the
+    route's launch counter moves by that route alone), and every launch of
+    a cifar10_tnn step at B = CLASSIFY_BATCH but conv1 on the wgmma route.
+    Returns the largest absolute difference seen on each (0.0 when every
+    exact case is equal)."""
     from repro_torch.kernels.ref import ternary_conv2d_ref
     from repro_torch.kernels.ternary_conv2d import (
+        conv_plan,
         ternary_conv2d_cuda,
         ternary_conv2d_native,
     )
@@ -522,14 +545,17 @@ def check_kernel(dev):
     ]
     cases = []
     for name, h, w, c_in, c_out, k, pool, in_dtype in MAIN_PATH_SHAPES:
-        for b in (POOL, 1):
+        for b in (POOL, 1, POOL64):
             for dt in (torch.float32, torch.int8):
                 cases.append((f"{name}/B{b}", b, h, w, c_in, c_out, k, pool, dt))
     for name, h, w, c_in, c_out, k, pool in EXTRA_SHAPES:
         for dt in (torch.float32, torch.int8):
             cases.append((name, 2, h, w, c_in, c_out, k, pool, dt))
+    for name, h, w, c_in, c_out, k, pool, dt in CIFAR_SHAPES:
+        cases.append((f"{name}/B{CLASSIFY_BATCH}", CLASSIFY_BATCH, h, w, c_in, c_out, k, pool, dt))
     worst = 0.0
     n = 0
+    on_wgmma = {}  # case name -> [launches on the wgmma route, launches]
     for name, b, h, w, c_in, c_out, k, pool, dt in cases:
         x, wp, scale, thr = make_case(gen, b, h, w, c_in, c_out, k, dt, dev)
         for tern, pooled, out_dtype in variants:
@@ -537,8 +563,17 @@ def check_kernel(dev):
                 continue
             kw = dict(fuse_ternary=tern, fuse_pool=pool if pooled else 0,
                       out_dtype=out_dtype)
+            route = conv_plan(b, h, w, c_in, c_out, k, k, kw["fuse_pool"], dt).route
+            before = ternary_conv2d_cuda.launches_wgmma
             got = ternary_conv2d_cuda(x, wp, scale, thr, **kw)
             torch.cuda.synchronize()
+            took = ternary_conv2d_cuda.launches_wgmma - before
+            if took != route:
+                fail(f"K1 at {name} {dt} variant {(tern, pooled, out_dtype)}: "
+                     f"{took} wgmma launches where conv_plan picked route {route}")
+            counts = on_wgmma.setdefault(f"{name}/{dt}", [0, 0])
+            counts[0] += took
+            counts[1] += 1
             want = ternary_conv2d_native(x, wp, scale, thr, **kw)
             oracle = ternary_conv2d_ref(x, wp, scale, threshold=thr, **kw)
             err = (got.float() - want.float()).abs().max().item()
@@ -568,26 +603,43 @@ def check_kernel(dev):
             if not torch.allclose(got, want, rtol=1e-4, atol=1e-4):
                 fail(f"kernel off the plain version beyond 1e-4 at {name} pool "
                      f"{fuse_pool} on Gaussian float32 x: max|diff|={err}")
+    # every variant of the seven int8 launches of a cifar10_tnn step on wgmma
+    for name, *_, dt in CIFAR_SHAPES:
+        took, launched = on_wgmma[f"{name}/B{CLASSIFY_BATCH}/{dt}"]
+        if took != (launched if dt == torch.int8 else 0):
+            fail(f"{name} at B {CLASSIFY_BATCH} ({dt}): {took} of {launched} "
+                 f"checked launches on the wgmma route")
+    wgmma = sum(took for took, _ in on_wgmma.values())
+    by_batch = {b: sum(on_wgmma[f"{name}/B{b}/{dt}"][0] for name, *_ in MAIN_PATH_SHAPES
+                       for dt in (torch.float32, torch.int8))
+                for b in (POOL, 1, POOL64)}
     print(f"[chip_smoke] kernels: ternary_conv2d == plain version == ref oracle "
-          f"on {n} cases (tolerance 0), max_abs_err {worst}; within 1e-4 on Gaussian "
+          f"on {n} cases (tolerance 0; {wgmma} of them on the wgmma route, each "
+          f"where conv_plan picked it: the dvs_cnn_tcn tick's at B {POOL} / 1 / "
+          f"{POOL64} {by_batch[POOL]} / {by_batch[1]} / {by_batch[POOL64]}, every "
+          f"variant of the {len(CIFAR_SHAPES) - 1} int8 cifar10_tnn launches at B "
+          f"{CLASSIFY_BATCH}), max_abs_err {worst}; within 1e-4 on Gaussian "
           f"float32 x at {', '.join(K1_GAUSSIAN)}, max_abs_err {worst_gauss}", flush=True)
     return worst, worst_gauss
 
 
-def time_kernel(dev):
-    """Phase 3b: one pool tick's nine launches at B = POOL on the fused
-    int8 variant — kernel, plain version, `F.conv2d` yardstick, and the
-    bound worked out from the shapes.  Returns (totals, per-shape rows)."""
+def time_kernel(dev, shapes=None, batch=POOL):
+    """Phase 3b: one step's launches (a pool tick's nine at B = POOL; then
+    cifar10_tnn's eight at B = CLASSIFY_BATCH) on the fused int8 variant —
+    kernel, plain version, `F.conv2d` yardstick, the bound worked out from
+    the shapes, and the route `conv_plan` took.  Returns (totals, per-shape
+    rows)."""
     from repro_torch.core.ternary import unpack_ternary
     from repro_torch.kernels.ternary_conv2d import (
+        conv_plan,
         ternary_conv2d_cuda,
         ternary_conv2d_native,
     )
 
     gen = torch.Generator().manual_seed(SEED + 1)
     rows = []
-    for name, h, w, c_in, c_out, k, pool, dt in MAIN_PATH_SHAPES:
-        x, wp, scale, thr = make_case(gen, POOL, h, w, c_in, c_out, k, dt, dev)
+    for name, h, w, c_in, c_out, k, pool, dt in shapes or MAIN_PATH_SHAPES:
+        x, wp, scale, thr = make_case(gen, batch, h, w, c_in, c_out, k, dt, dev)
         kw = dict(fuse_ternary=True, fuse_pool=pool, out_dtype=torch.int8)
         ms = time_ms(lambda: ternary_conv2d_cuda(x, wp, scale, thr, **kw))
         plain_ms = time_ms(lambda: ternary_conv2d_native(x, wp, scale, thr, **kw), iters=10)
@@ -597,22 +649,25 @@ def time_kernel(dev):
         w_oihw = unpack_ternary(wp, axis=2).float().permute(3, 2, 0, 1).contiguous()
         library_ms = time_ms(lambda: F.conv2d(x_nchw, w_oihw, padding=k // 2))
         p = pool if pool > 1 else 1
-        out_elems = POOL * (h // p) * (w // p) * c_out
+        out_elems = batch * (h // p) * (w // p) * c_out
         nbytes = (x.numel() * x.element_size() + wp.numel() + 4 * scale.numel()
                   + 4 * thr.numel() + out_elems)  # int8 out: one byte each
-        ops = 2 * POOL * h * w * k * k * c_in * c_out
+        ops = 2 * batch * h * w * k * k * c_in * c_out
         bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
         op_ms = ops_ms(ops, x)
+        route = conv_plan(batch, h, w, c_in, c_out, k, k, pool, dt).route
         rows.append({
-            "shape": name, "x": [POOL, h, w, c_in], "x_dtype": str(dt).split(".")[-1],
-            "c_out": c_out, "pool": pool, "ms": ms, "plain_ms": plain_ms,
+            "shape": name, "x": [batch, h, w, c_in], "x_dtype": str(dt).split(".")[-1],
+            "c_out": c_out, "pool": pool, "route": ["mma", "wgmma"][route],
+            "ms": ms, "plain_ms": plain_ms,
             "library_ms": library_ms, "ms_over_library": ms / library_ms,
             "bytes": nbytes, "operations": ops, "bound_ms": max(bytes_ms, op_ms),
             "bound_by": "bytes" if bytes_ms >= op_ms else "operations",
             "_bytes_ms": bytes_ms, "_ops_ms": op_ms,
         })
-        print(f"[chip_smoke]   {name:7s} x{[POOL, h, w, c_in]} {rows[-1]['x_dtype']:7s} "
-              f"kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  F.conv2d {library_ms:.4f} ms  "
+        print(f"[chip_smoke]   {name:7s} x{[batch, h, w, c_in]} {rows[-1]['x_dtype']:7s} "
+              f"{rows[-1]['route']:5s} kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
+              f"F.conv2d {library_ms:.4f} ms  "
               f"bound {rows[-1]['bound_ms']:.6f} ms ({rows[-1]['bound_by']})", flush=True)
     total = {key: sum(r[key] for r in rows)
              for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
@@ -766,7 +821,7 @@ def serve_main_path(dev):
     the main path, serving stats for the report)."""
     from repro_torch.api import get_net
     from repro_torch.data.pipeline import DVSEventPipeline
-    from repro_torch.kernels.ternary_conv2d import ternary_conv2d_cuda
+    from repro_torch.kernels.ternary_conv2d import conv_plan, ternary_conv2d_cuda
     from repro_torch.serving import ContinuousBatcher, StreamRequest
 
     prog = get_net("dvs_cnn_tcn")
@@ -794,9 +849,12 @@ def serve_main_path(dev):
         return batcher, results, time.perf_counter() - t0
 
     run_pool(2)  # warm-up: first-launch costs stay out of the timed run
-    ternary_conv2d_cuda.launches = 0
+    ternary_conv2d_cuda.launches = ternary_conv2d_cuda.launches_wgmma = 0
     batcher, results, wall = run_pool(N_STREAMS)
     launches = ternary_conv2d_cuda.launches
+    launches_wg = ternary_conv2d_cuda.launches_wgmma
+    wg_per_tick = sum(conv_plan(POOL, h, w, c_in, c_out, k, k, pool, dt).route
+                      for _, h, w, c_in, c_out, k, pool, dt in MAIN_PATH_SHAPES)
 
     stats = batcher.stats()
     busy_ticks = len(batcher.latency_trace)
@@ -811,6 +869,9 @@ def serve_main_path(dev):
     if launches != 9 * busy_ticks:
         fail(f"{launches} kernel launches over {busy_ticks} pool ticks; the "
              "fused path makes 9 per tick (5 conv + 4 TCN layers)")
+    if launches_wg != wg_per_tick * busy_ticks:
+        fail(f"{launches_wg} K1 launches on the wgmma route over {busy_ticks} pool "
+             f"ticks; conv_plan routes {wg_per_tick} of a tick's 9 there")
     if batcher.pool.trace_count != 1 or not batcher.pool.captured:
         fail(f"the pool's step was captured {batcher.pool.trace_count} times "
              f"(captured: {batcher.pool.captured}); the contract is once")
@@ -851,6 +912,7 @@ def serve_main_path(dev):
         "mean_occupancy": stats["mean_occupancy"],
         "wall_s": wall, "frames_per_s": stats["frames_processed"] / wall,
         "ms_per_tick": wall / busy_ticks * 1e3, "trace_count": batcher.pool.trace_count,
+        "k1_launches": launches, "k1_launches_wgmma": launches_wg,
         "eager_wall_s": eager_wall,
         "eager_ms_per_tick": eager_wall / len(eager_batcher.latency_trace) * 1e3,
     }
@@ -860,7 +922,8 @@ def serve_main_path(dev):
           f"{serving['ms_per_tick']:.3f} ms/tick (jit=False: "
           f"{serving['eager_ms_per_tick']:.3f}), occupancy "
           f"{serving['mean_occupancy']:.2f}; {launches} kernel launches "
-          f"(9 per tick); step captured once; jit=True == jit=False; pooled == lone "
+          f"(9 per tick; {launches_wg} on the wgmma route, {wg_per_tick} per tick); step "
+          f"captured once; jit=True == jit=False; pooled == lone "
           f"session (captured and eager); fused == ref", flush=True)
     serving["backends_captured_vs_eager"] = _captured_vs_eager_backends(dev)
     serving["tick_times"] = _tick_times(deployed, dev)
@@ -894,7 +957,7 @@ def _classify_main_path(dev):
     ends = np.cumsum(sizes)
     for i, (lo, hi) in enumerate(zip(ends - sizes, ends)):
         clf.submit(f"request-{i}", images[lo:hi])
-    ternary_conv2d_cuda.launches = 0
+    ternary_conv2d_cuda.launches = ternary_conv2d_cuda.launches_wgmma = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     answers, inflight = {}, 0
@@ -903,6 +966,7 @@ def _classify_main_path(dev):
         inflight += clf.inflight
     wall = time.perf_counter() - t0
     launches = ternary_conv2d_cuda.launches
+    launches_wg = ternary_conv2d_cuda.launches_wgmma
     if len(answers) != len(sizes) or [len(answers[f"request-{i}"]) for i in
                                       range(len(sizes))] != sizes.tolist():
         fail(f"classify: {len(answers)}/{len(sizes)} requests answered, or rows != images")
@@ -923,14 +987,20 @@ def _classify_main_path(dev):
              f"{clf.step.k1_per_replay} K1 launches a replay; the contract is 1 and 8")
     if launches != 8 * clf.tick_index:
         fail(f"classify: {launches} K1 launches over {clf.tick_index} ticks, expected 8 a tick")
+    # conv 1 (float32 pixels) on the mma.sync route, the seven int8 convs on wgmma
+    if clf.step.k1_wgmma_per_replay != 7 or launches_wg != 7 * clf.tick_index:
+        fail(f"classify: {launches_wg} K1 launches on the wgmma route over {clf.tick_index} "
+             f"ticks ({clf.step.k1_wgmma_per_replay} a replay), expected 7 a tick")
     out = {"net": g.name, "batch": CLASSIFY_BATCH, "requests": len(sizes),
            "images": int(sizes.sum()), "ticks": clf.tick_index, "k1_launches": launches,
+           "k1_launches_wgmma": launches_wg,
            "inflight_share": inflight / clf.tick_index,
            "wall_s": wall, "images_per_s": int(sizes.sum()) / wall}
     print(f"[chip_smoke] classify: {g.name} fused, {out['images']} images in "
           f"{len(sizes)} requests, batch {CLASSIFY_BATCH}: {clf.tick_index} ticks, "
           f"{wall:.3f} s -> {out['images_per_s']:.0f} images/s (first tick builds); "
-          f"{launches} K1 launches (8 per tick), step captured once; "
+          f"{launches} K1 launches (8 per tick, {launches_wg} of them on the wgmma route), "
+          f"step captured once; "
           f"{inflight}/{clf.tick_index} ticks left their batch in flight; served == eager "
           f"fused == ref forward on every image", flush=True)
     return out
@@ -3172,6 +3242,14 @@ def main() -> int:
     # phase 3: each kernel against its plain version, then times
     exact_err, gauss_err = check_kernel(dev)
     total, per_shape = time_kernel(dev)
+    print(f"[chip_smoke] K1, a pool-{POOL} tick's 9 launches: {total['ms']:.4f} ms "
+          f"(bound {total['bound_ms']:.6f} ms)", flush=True)
+    cifar_total, cifar_shapes = time_kernel(dev, CIFAR_SHAPES, CLASSIFY_BATCH)
+    wg_rows = [r for r in cifar_shapes if r["route"] == "wgmma"]
+    print(f"[chip_smoke] K1, a cifar10_tnn step's 8 launches at B {CLASSIFY_BATCH}: "
+          f"{cifar_total['ms']:.4f} ms (bound {cifar_total['bound_ms']:.6f} ms); its "
+          f"{len(wg_rows)} wgmma launches {sum(r['ms'] for r in wg_rows):.4f} ms (bound "
+          f"{sum(r['bound_ms'] for r in wg_rows):.6f} ms)", flush=True)
     mm_err_f32, mm_err_bf16 = check_matmul(dev)
     mm_rows = time_matmul(dev)
     check_determinism(dev)
@@ -3230,6 +3308,11 @@ def main() -> int:
         "launches_bench": bench_report["kernel_launches"]["ternary_conv2d"],
         "times_cover": "the 9 launches of one pool tick at pool size 8 (sum)",
         "shapes": per_shape,
+        "cifar_b256": {**cifar_total, "shapes": cifar_shapes,
+                       "times_cover": f"the 8 launches of one cifar10_tnn step at batch "
+                                      f"{CLASSIFY_BATCH} (sum)"},
+        "launches_wgmma": serving["k1_launches_wgmma"],
+        "launches_wgmma_classify": serving["classify"]["k1_launches_wgmma"],
     }, {
         "name": "ternary_matmul", "route": "cuda", "source": K2_SOURCE,
         "replaces": K2_REPLACES, "launches": qs_launches["ternary_matmul"],

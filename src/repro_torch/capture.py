@@ -87,8 +87,10 @@ class CapturedStep:
         self._staging: Dict[Tuple[int, int], Tuple[torch.Tensor, torch.cuda.Event]] = {}
         self._out = None                    # the graph's output tree
         self._fresh: List[bool] = []        # per output leaf: copied per call
-        # K1 launches the graph holds, added to the launch count per replay
+        # K1 launches the graph holds, added to the launch count per replay,
+        # and those of them on K1's wgmma route
         self.k1_per_replay = 0
+        self.k1_wgmma_per_replay = 0
         self.capture_s: Optional[float] = None
 
     @property
@@ -113,14 +115,17 @@ class CapturedStep:
                 leaves = [x.clone() if fresh else x
                           for x, fresh in zip(tree_leaves(self._out), self._fresh)]
             ternary_conv2d_cuda.launches += self.k1_per_replay
+            ternary_conv2d_cuda.launches_wgmma += self.k1_wgmma_per_replay
             return tree_unflatten(self._out, leaves)
         if not self.capture:
             self.builds = max(self.builds, 1)
             return self._run()
         launched = ternary_conv2d_cuda.launches
+        launched_wg = ternary_conv2d_cuda.launches_wgmma
         out = self._warm_up()  # this call's result
         t0 = time.perf_counter()
-        self._capture(ternary_conv2d_cuda.launches - launched)
+        self._capture(ternary_conv2d_cuda.launches - launched,
+                      ternary_conv2d_cuda.launches_wgmma - launched_wg)
         self.capture_s = time.perf_counter() - t0
         return out
 
@@ -193,8 +198,9 @@ class CapturedStep:
                 x.record_stream(current)  # the caller reads it there
         return out
 
-    def _capture(self, k1_eager: int) -> None:
+    def _capture(self, k1_eager: int, k1_wgmma_eager: int) -> None:
         recorded = ternary_conv2d_cuda.recorded
+        recorded_wg = ternary_conv2d_cuda.recorded_wgmma
         graph = torch.cuda.CUDAGraph()
         # A graph freed while another is being captured (a dead session's,
         # reclaimed by the cyclic collector at some allocation) makes a CUDA
@@ -210,12 +216,14 @@ class CapturedStep:
             if collecting:
                 gc.enable()
         k1 = ternary_conv2d_cuda.recorded - recorded
-        if k1 != k1_eager:
+        k1_wg = ternary_conv2d_cuda.recorded_wgmma - recorded_wg
+        if (k1, k1_wg) != (k1_eager, k1_wgmma_eager):
             raise RuntimeError(
-                f"the captured step recorded {k1} K1 launches, its eager run "
-                f"made {k1_eager}: the step is not the same work twice"
+                f"the captured step recorded {k1} K1 launches ({k1_wg} on the wgmma "
+                f"route), its eager run made {k1_eager} ({k1_wgmma_eager}): the step "
+                f"is not the same work twice"
             )
         self._out = out
         self._fresh = [id(x) not in self._held for x in tree_leaves(out)]
-        self.graph, self.k1_per_replay = graph, k1
+        self.graph, self.k1_per_replay, self.k1_wgmma_per_replay = graph, k1, k1_wg
         self.builds += 1

@@ -12,12 +12,17 @@
 // plus - minus), then y*scale[n]; optionally the ThFU ternarize
 // |y| > thr[n] ? sign(y) : 0 (strict >); optionally a p x p max-pool; cast.
 //
-// Bound on this card: at the serving shapes (at most 8x64x64x64 outputs per
-// launch) the work is 0.01-2.3 us at the tensor cores' int8 / CUDA cores'
-// float32 peak and a few hundred kilobytes of traffic, so a launch is bounded
-// by latency: the first version of this kernel took 23-48 us per launch, with
-// 24-256 blocks each walking C_in in decode -> stage -> barrier -> FMA
-// chunks.  This design is an implicit GEMM on the tensor cores:
+// Two routes, one semantics; `conv_plan` in kernels/ternary_conv2d.py picks
+// one from the launch's shape alone, and the entry point refuses a plan that
+// is not the route's own arithmetic.
+//
+// Route 0, the mma.sync kernel (`tconv_kernel`).  Bound on this card: at a
+// pool tick's shapes (at most 8x64x64x64 outputs per launch) the work is
+// 0.01-2.3 us at the tensor cores' int8 / CUDA cores' float32 peak and a few
+// hundred kilobytes of traffic, so a launch is bounded by latency: the first
+// version of this kernel took 23-48 us per launch, with 24-256 blocks each
+// walking C_in in decode -> stage -> barrier -> FMA chunks.  This design is
+// an implicit GEMM on the tensor cores:
 //
 //   * GEMM view.  M = output pixels, N = output channels, and the reduction
 //     index k = (tap, channel) flattened with the channel fastest, padded with
@@ -54,10 +59,52 @@
 //     ThFU ternarize -> [p x p max] -> cast, written channel-contiguous; the
 //     accumulator never reaches device memory.
 //
+// Route 1, the persistent weight-stationary wgmma kernel (`tconv_kernel_wg`),
+// for int8 x with C_in % 32 == 0, C_out 64 or 96, no pool or a 2x2 one, and a
+// launch that fills the card: at least one 8x8 output tile per SM (132) and
+// 1024 pixels (the crossover measured on the H100).  Bound on this card: the
+// tensor cores' int8 rate — cifar10_tnn's second conv at batch 256 is 43.5
+// GOP, 22 us at 1979 TOP/s, against 2.3 MB of traffic (0.7 us).  Route 0 is
+// 20x off that bound there: each of its blocks stages its patch and a 32-column
+// weight slice behind one barrier, decodes the packed bytes again before every
+// mma.sync, and runs only 27 k-steps of 4 mmas per warp before a scalar
+// epilogue through shared memory; at 12,288 blocks a launch, the same patch is
+// staged and decoded for each of three column blocks.  This design:
+//
+//   * Weight-stationary, persistent.  At most one block per SM (132), four
+//     consumer warpgroups each.  A block decodes the layer's packed weights
+//     once into shared memory, in the K-major no-swizzle layout the wgmma B
+//     descriptor reads ([k-step][N/8][2][8][16] bytes; 83 KB for 3x3x96x96),
+//     then walks its tiles: tile t goes to block t % blocks, and a block's
+//     warpgroups take its tiles in turn, so a launch of fewer tiles than SMs
+//     spreads one tile per block.
+//   * `wgmma.m64nNk32.s32.s8.s8`, A from registers, B from shared memory,
+//     N = all of C_out in one instruction.  A warpgroup's 64 rows are an 8x8
+//     tile, each warp's 16 rows two image rows of 8 pixels, whose A fragment
+//     is the m16n8k32 fragment route 0 gathers: one shared load per register
+//     through the k-step's (tap, channel) offset.  Each A fragment now feeds
+//     all of C_out.  Three fragments are in flight (a register ring); ptxas
+//     does not know an in-flight wgmma still reads them, so each fragment's
+//     registers are held live (`fence_operands`) until the wait that retires
+//     its reader.
+//   * A ring of two input patches per warpgroup (the tile plus the SAME
+//     border, zero-filled outside the image) in 16-byte `cp.async`: tile
+//     t+1's patch loads while tile t's wgmmas run; the first two load while
+//     the block decodes its weights.  Pixels are C_in + 16 bytes apart, so the
+//     eight pixels of an A gather fall on distinct banks.
+//   * Epilogue from registers: scale -> ThFU ternarize (strict >) -> [2x2 max:
+//     the window is two registers of a thread and the same two of lane ^ 4]
+//     -> cast; int8 through a per-warp staging row in 16-byte stores.  No
+//     int32 partial ever reaches shared memory.
+//   * Exact: s8 x s8 -> s32 sums, converted to float32 exactly, then the same
+//     float32 operations as route 0 and the plain version.  Fixed grid, no
+//     allocation, no host synchronisation: it is captured in CUDA graphs.
+//
 // The TCONV_ABLATE_* macros compile one phase out (operand staging, fragment
-// decode, mma walk, epilogue).  They exist for benchmarks/kernel_ablate_torch.py,
-// which times the variants to show where a launch's time goes; an ablated
-// build is wrong by design and the package never defines them.
+// decode, mma walk, epilogue) of route 0.  They exist for
+// benchmarks/kernel_ablate_torch.py, which times the variants to show where a
+// launch's time goes; an ablated build is wrong by design and the package
+// never defines them.
 //
 // Interface: plain C, loaded with ctypes.  The launcher enqueues on the given
 // stream, does not synchronise, allocates nothing and returns
@@ -381,25 +428,393 @@ int dispatch(const void* x, const void* wp, const float* scale, const float* thr
 #undef TCONV_ARGS
 }
 
+
+// ---------------------------------------------------------------------------
+// Route 1: the persistent, weight-stationary wgmma kernel (int8 x, large B*H*W)
+// ---------------------------------------------------------------------------
+
+constexpr int kWgGroups = 4;                  // consumer warpgroups per block
+constexpr int kWgThreads = 128 * kWgGroups;
+constexpr int kWgRing = 3;                    // A fragments in flight per thread (k-steps)
+constexpr int kWgTile = 8;                    // a warpgroup's tile: 8 x 8 output pixels
+constexpr int kWgMaxBlocks = 132;             // one block per SM of an H100
+constexpr int kWgMaxSmem = 232448;            // dynamic shared memory a block may use
+constexpr int kWgLbo = 128;                  // B's core-matrix stride along K ...
+constexpr int kWgSbo = 256;                  // ... and along N (8-column groups)
+
+// Bytes per staged input pixel: 16-byte aligned for the copies, and C_in/4 + 4
+// words apart (C_in % 32 == 0), so the eight pixels of one A gather fall on
+// eight distinct groups of four banks.
+__host__ __device__ inline int wg_pixel_stride(int c_in) { return c_in + 16; }
+
+// Bytes of an output staging row: the same spread for the epilogue's writes.
+__host__ __device__ inline int wg_stage_stride(int n) { return n + 16; }
+
+struct WgLayout {
+  int weights, koff, scale, thr, groups, patch, stage, group, total;
+};
+
+// weights: per k-step the K-major B operand of one wgmma, 32 * N bytes:
+// [N/8][2][8][16] — core matrices of 8 columns x 16 k-bytes, the two k-halves
+// kWgLbo apart, the 8-column groups kWgSbo apart.  Then the k-step table, the
+// scales and thresholds, and per warpgroup two input patches (the ring) and
+// its warps' int8 output staging.
+__host__ __device__ inline WgLayout wg_layout(int kh, int kw, int c_in, int n) {
+  const int k_steps = kh * kw * c_in / 32;
+  WgLayout l;
+  l.weights = 0;
+  l.koff = round16(k_steps * 32 * n);
+  l.scale = l.koff + round16(k_steps * 4);
+  l.thr = l.scale + round16(n * 4);
+  l.groups = l.thr + round16(n * 4);
+  l.patch = round16((kWgTile + kh - 1) * (kWgTile + kw - 1) * wg_pixel_stride(c_in));
+  l.stage = 4 * 16 * wg_stage_stride(n);
+  l.group = 2 * l.patch + l.stage;
+  l.total = l.groups + kWgGroups * l.group;
+  return l;
+}
+
+__device__ __forceinline__ float thfu(int acc, float scale, float thr, bool ternarize) {
+  float y = static_cast<float>(acc) * scale;
+  if (ternarize) y = fabsf(y) > thr ? (y > 0.0f ? 1.0f : -1.0f) : 0.0f;
+  return y;
+}
+
+__device__ __forceinline__ uint16_t pack_s8x2(float lo, float hi) {
+  return static_cast<uint16_t>(static_cast<uint8_t>(static_cast<int8_t>(lo)) |
+                               (static_cast<uint8_t>(static_cast<int8_t>(hi)) << 8));
+}
+
+template <typename TOut, int N, bool kTernarize, bool kPool>
+__global__ void __launch_bounds__(kWgThreads, 1)
+tconv_kernel_wg(const int8_t* __restrict__ x, const uint8_t* __restrict__ wp,
+                const float* __restrict__ scale, const float* __restrict__ thr,
+                TOut* __restrict__ out, int B, int H, int W, int C_in, int KH, int KW) {
+  constexpr int kAcc = N / 2;          // int32 accumulators a thread holds (64 x N / 128)
+  constexpr int kChunks = N / 16;      // 16-byte chunks of an int8 output pixel
+  constexpr uint64_t kStepUnits = 32 * N / 16;   // descriptor address units per k-step
+  extern __shared__ __align__(16) unsigned char smem[];
+
+  const int tid = threadIdx.x;
+  const int k_steps = KH * KW * C_in / 32;
+  const int patch_w = kWgTile + KW - 1, patch_h = kWgTile + KH - 1;
+  const int ps = wg_pixel_stride(C_in);
+  const WgLayout lay = wg_layout(KH, KW, C_in, N);
+  int* koff = reinterpret_cast<int*>(smem + lay.koff);
+  float* s_scale = reinterpret_cast<float*>(smem + lay.scale);
+  float* s_thr = reinterpret_cast<float*>(smem + lay.thr);
+
+  // ---- per warpgroup: a static walk over 8 x 8 output tiles; the first two
+  //      patches load while the block decodes its weights ------------------
+  const int wg = tid >> 7, wtid = tid & 127;
+  const int warp = wtid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  unsigned char* region = smem + lay.groups + wg * lay.group;
+  unsigned char* staging = region + 2 * lay.patch + warp * 16 * wg_stage_stride(N);
+
+  const int tiles_x = (W + kWgTile - 1) / kWgTile;
+  const int tiles_img = tiles_x * ((H + kWgTile - 1) / kWgTile);
+  const int n_tiles = B * tiles_img;
+  const int stride = gridDim.x * kWgGroups;
+  const int c16 = C_in >> 4;
+  const int row_chunks = patch_w * c16;
+  const int patch_chunks = patch_h * row_chunks;
+
+  // the tile's input patch (its 8 x 8 pixels plus the SAME border, zero
+  // outside the image) into ring stage s, 16-byte copies; one commit group per
+  // call, empty past the last tile, so the group count stays in step
+  auto load_patch = [&](int tile, int s) {
+    if (tile < n_tiles) {
+      const int b = tile / tiles_img, r = tile - b * tiles_img;
+      const int y0 = (r / tiles_x) * kWgTile - KH / 2;
+      const int x0 = (r % tiles_x) * kWgTile - KW / 2;
+      unsigned char* dst = region + s * lay.patch;
+      for (int i = wtid; i < patch_chunks; i += 128) {
+        const int py = i / row_chunks, rem = i - py * row_chunks;
+        const int px = rem / c16, ch = rem - px * c16;
+        const int iy = y0 + py, ix = x0 + px;
+        const bool ok = iy >= 0 && iy < H && ix >= 0 && ix < W;
+        const int8_t* src =
+            ok ? x + ((static_cast<size_t>(b) * H + iy) * W + ix) * C_in + 16 * ch : x;
+        tmma::cp_async<16>(dst + (py * patch_w + px) * ps + 16 * ch, src, ok);
+      }
+    }
+    tmma::cp_async_commit();
+  };
+
+  // tile t -> block t % blocks, so a launch of fewer tiles than SMs spreads
+  // one tile per block; a block's warpgroups take the tiles blocks apart
+  int tile = wg * gridDim.x + blockIdx.x;
+  load_patch(tile, 0);
+  load_patch(tile + stride, 1);
+
+  // ---- once per block: the layer's packed weights -> B in shared memory ---
+  // item i -> (k-half kc = 2 * k-step + half, columns 4 n4 .. 4 n4 + 3): the
+  // 16 trits k = 16 kc .. 16 kc + 15 of a column are its bytes in the 4
+  // packed rows (k-groups) 4 kc .. 4 kc + 3, decoded into one 16-byte
+  // core-matrix row.  Four items per thread are loaded before any is decoded,
+  // so their loads are in flight together.
+  constexpr int kQuads = N / 4;
+  const int items = 2 * k_steps * kQuads;
+  for (int base = 0; base < items; base += 4 * kWgThreads) {
+    uint32_t w[4][4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int i = base + u * kWgThreads + tid;
+      if (i < items) {
+        const int kc = i / kQuads, n4 = i - kc * kQuads;
+        const uint8_t* src = wp + static_cast<size_t>(4 * kc) * N + 4 * n4;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) w[u][e] = *reinterpret_cast<const uint32_t*>(src + e * N);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int i = base + u * kWgThreads + tid;
+      if (i < items) {
+        const int kc = i / kQuads, n4 = i - kc * kQuads;
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int n = 4 * n4 + c;
+          uint4 v;
+          v.x = tmma::decode_s8x4(w[u][0] >> (8 * c));
+          v.y = tmma::decode_s8x4(w[u][1] >> (8 * c));
+          v.z = tmma::decode_s8x4(w[u][2] >> (8 * c));
+          v.w = tmma::decode_s8x4(w[u][3] >> (8 * c));
+          *reinterpret_cast<uint4*>(smem + lay.weights + (kc >> 1) * 32 * N + (n >> 3) * kWgSbo +
+                                    (kc & 1) * kWgLbo + (n & 7) * 16) = v;
+        }
+      }
+    }
+  }
+  // k-step -> offset of its (tap, first channel) in a patch: C_in % 32 == 0,
+  // so the 32 k of a step lie in one tap and need no padding
+  for (int ks = tid; ks < k_steps; ks += kWgThreads) {
+    const int tap = ks * 32 / C_in;
+    koff[ks] = ((tap / KW) * patch_w + tap % KW) * ps + (ks * 32 - tap * C_in);
+  }
+  for (int n = tid; n < N; n += kWgThreads) {
+    s_scale[n] = scale[n];
+    s_thr[n] = kTernarize ? thr[n] : 0.0f;
+  }
+  tmma::fence_proxy_async();   // the decoded B, as the wgmmas' async reads see it
+  __syncthreads();
+
+  // this thread's A rows: pixels (2 warp, g) and (2 warp + 1, g) of the tile
+  const int a_row0 = ((2 * warp) * patch_w + g) * ps + 4 * t;
+  const int a_row1 = a_row0 + patch_w * ps;
+  const uint64_t desc0 = tmma::smem_desc(
+      static_cast<uint32_t>(__cvta_generic_to_shared(smem + lay.weights)), kWgLbo, kWgSbo);
+
+  int acc[kAcc];
+#pragma unroll
+  for (int i = 0; i < kAcc; ++i) acc[i] = 0;
+
+  for (int it = 0; tile < n_tiles; ++it, tile += stride) {
+    const int s = it & 1;
+    tmma::cp_async_wait<1>();      // this tile's patch: this thread's copies ...
+    tmma::bar_sync(1 + wg, 128);   // ... and the warpgroup's
+    const unsigned char* p0 = region + s * lay.patch + a_row0;
+    const unsigned char* p1 = region + s * lay.patch + a_row1;
+    auto load_a = [&](uint32_t (&a)[4], int ks) {
+      const int o = koff[ks];
+      a[0] = *reinterpret_cast<const uint32_t*>(p0 + o);
+      a[1] = *reinterpret_cast<const uint32_t*>(p1 + o);
+      a[2] = *reinterpret_cast<const uint32_t*>(p0 + o + 16);
+      a[3] = *reinterpret_cast<const uint32_t*>(p1 + o + 16);
+    };
+
+    // the k walk: kWgRing A fragments in registers, so the gather of step k+1
+    // runs while the wgmmas of the steps before it do; a fragment's registers
+    // are rewritten only after the wgmma that read them has completed
+    uint32_t a[kWgRing][4] = {};
+    load_a(a[0], 0);
+    tmma::fence_operands(acc);
+    for (int k0 = 0; k0 < k_steps; k0 += kWgRing) {
+#pragma unroll
+      for (int q = 0; q < kWgRing; ++q) {
+        const int ks = k0 + q;
+        if (ks < k_steps) {
+          tmma::wgmma_fence();
+          tmma::wgmma_s8(acc, a[q], desc0 + ks * kStepUnits, ks > 0);
+          tmma::wgmma_commit();
+          if (ks + 1 < k_steps) {
+            tmma::wgmma_wait<kWgRing - 1>();   // step ks + 1 - kWgRing, which read it, is done
+            tmma::fence_operands(a[(q + 1) % kWgRing]);
+            load_a(a[(q + 1) % kWgRing], ks + 1);
+          }
+        }
+      }
+    }
+    tmma::wgmma_wait<0>();
+    tmma::fence_operands(acc);
+#pragma unroll
+    for (int q = 0; q < kWgRing; ++q) tmma::fence_operands(a[q]);
+    tmma::bar_sync(1 + wg, 128);   // every gather from stage s is done: refill it
+    load_patch(tile + 2 * stride, s);
+
+    // ---- epilogue from registers: scale -> ThFU ternarize (strict >) ->
+    //      [2 x 2 max] -> cast; int8 through the warp's staging rows in
+    //      16-byte stores --------------------------------------------------------
+    const int b = tile / tiles_img, r = tile - b * tiles_img;
+    const int y0 = (r / tiles_x) * kWgTile, x0 = (r % tiles_x) * kWgTile;
+    const int oy = y0 + 2 * warp, ox = x0 + g;   // this thread's pixels: (oy, ox), (oy + 1, ox)
+    const int ss = wg_stage_stride(N);
+    if (!kPool) {
+#pragma unroll
+      for (int j = 0; j < N / 8; ++j) {
+        const int c = 8 * j + 2 * t;
+        const float2 sc = *reinterpret_cast<const float2*>(s_scale + c);
+        const float2 th = *reinterpret_cast<const float2*>(s_thr + c);
+        const float v00 = thfu(acc[4 * j], sc.x, th.x, kTernarize);
+        const float v01 = thfu(acc[4 * j + 1], sc.y, th.y, kTernarize);
+        const float v10 = thfu(acc[4 * j + 2], sc.x, th.x, kTernarize);
+        const float v11 = thfu(acc[4 * j + 3], sc.y, th.y, kTernarize);
+        if (std::is_same<TOut, int8_t>::value) {
+          *reinterpret_cast<uint16_t*>(staging + g * ss + c) = pack_s8x2(v00, v01);
+          *reinterpret_cast<uint16_t*>(staging + (g + 8) * ss + c) = pack_s8x2(v10, v11);
+        } else {
+          float* o = reinterpret_cast<float*>(out);
+          if (ox < W && oy < H)
+            *reinterpret_cast<float2*>(o + ((static_cast<size_t>(b) * H + oy) * W + ox) * N + c) =
+                make_float2(v00, v01);
+          if (ox < W && oy + 1 < H)
+            *reinterpret_cast<float2*>(
+                o + ((static_cast<size_t>(b) * H + oy + 1) * W + ox) * N + c) =
+                make_float2(v10, v11);
+        }
+      }
+      if (std::is_same<TOut, int8_t>::value) {
+        __syncwarp();
+        for (int i = lane; i < 16 * kChunks; i += 32) {
+          const int row = i / kChunks, ch = i - row * kChunks;
+          const int py = oy + (row >> 3), px = x0 + (row & 7);
+          if (py < H && px < W)
+            *reinterpret_cast<uint4*>(reinterpret_cast<int8_t*>(out) +
+                                      ((static_cast<size_t>(b) * H + py) * W + px) * N + 16 * ch) =
+                *reinterpret_cast<const uint4*>(staging + row * ss + 16 * ch);
+        }
+        __syncwarp();
+      }
+    } else {
+      // a 2 x 2 window is (oy, ox), (oy + 1, ox) in this thread's registers
+      // and the same two pixels of lane ^ 4 (g ^ 1); H, W even and the tile
+      // origin even, so a window lies wholly inside the image or wholly out
+      const int OH = H / 2, OW = W / 2;
+      const int qy = oy / 2, qx = ox / 2;
+#pragma unroll
+      for (int j = 0; j < N / 8; ++j) {
+        const int c = 8 * j + 2 * t;
+        const float2 sc = *reinterpret_cast<const float2*>(s_scale + c);
+        const float2 th = *reinterpret_cast<const float2*>(s_thr + c);
+        float m0 = fmaxf(thfu(acc[4 * j], sc.x, th.x, kTernarize),
+                         thfu(acc[4 * j + 2], sc.x, th.x, kTernarize));
+        float m1 = fmaxf(thfu(acc[4 * j + 1], sc.y, th.y, kTernarize),
+                         thfu(acc[4 * j + 3], sc.y, th.y, kTernarize));
+        m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, 4));
+        m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, 4));
+        if ((g & 1) == 0) {
+          if (std::is_same<TOut, int8_t>::value) {
+            *reinterpret_cast<uint16_t*>(staging + (g >> 1) * ss + c) = pack_s8x2(m0, m1);
+          } else if (qy < OH && qx < OW) {
+            *reinterpret_cast<float2*>(reinterpret_cast<float*>(out) +
+                                       ((static_cast<size_t>(b) * OH + qy) * OW + qx) * N + c) =
+                make_float2(m0, m1);
+          }
+        }
+      }
+      if (std::is_same<TOut, int8_t>::value) {
+        __syncwarp();
+        for (int i = lane; i < 4 * kChunks; i += 32) {
+          const int px = i / kChunks, ch = i - px * kChunks;
+          const int wx = x0 / 2 + px;
+          if (qy < OH && wx < OW)
+            *reinterpret_cast<uint4*>(reinterpret_cast<int8_t*>(out) +
+                                      ((static_cast<size_t>(b) * OH + qy) * OW + wx) * N + 16 * ch) =
+                *reinterpret_cast<const uint4*>(staging + px * ss + 16 * ch);
+        }
+        __syncwarp();
+      }
+    }
+  }
+  tmma::cp_async_wait<0>();   // no copy outlives the block
+}
+
+template <typename TOut, int N, bool kTernarize, bool kPool>
+int launch_wg(const void* x, const void* wp, const float* scale, const float* thr, void* out,
+              int B, int H, int W, int C_in, int KH, int KW, int blocks, cudaStream_t stream) {
+  auto kern = tconv_kernel_wg<TOut, N, kTernarize, kPool>;
+  const int smem = wg_layout(KH, KW, C_in, N).total;
+  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  kern<<<blocks, kWgThreads, smem, stream>>>(
+      static_cast<const int8_t*>(x), static_cast<const uint8_t*>(wp), scale, thr,
+      static_cast<TOut*>(out), B, H, W, C_in, KH, KW);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int N>
+int dispatch_wg(const void* x, const void* wp, const float* scale, const float* thr, void* out,
+                int out_is_int8, int B, int H, int W, int C_in, int KH, int KW,
+                int fuse_ternary, int pool, int blocks, cudaStream_t s) {
+#define TCONV_WG_ARGS x, wp, scale, thr, out, B, H, W, C_in, KH, KW, blocks, s
+  const bool pooled = pool > 1;
+  if (out_is_int8) {
+    if (!fuse_ternary) return -2;
+    return pooled ? launch_wg<int8_t, N, true, true>(TCONV_WG_ARGS)
+                  : launch_wg<int8_t, N, true, false>(TCONV_WG_ARGS);
+  }
+  if (fuse_ternary)
+    return pooled ? launch_wg<float, N, true, true>(TCONV_WG_ARGS)
+                  : launch_wg<float, N, true, false>(TCONV_WG_ARGS);
+  return pooled ? launch_wg<float, N, false, true>(TCONV_WG_ARGS)
+                : launch_wg<float, N, false, false>(TCONV_WG_ARGS);
+#undef TCONV_WG_ARGS
+}
+
 }  // namespace
 
 // Returns 0 when the kernel was launched, a cudaError_t when the launch was
 // refused, and a negative code for arguments the kernel does not take
 // (-1 geometry or plan, -2 int8 output without fuse_ternary).  The plan
-// (tile_h, tile_w, k_padded, warps_per_rows, blocks) comes from `conv_plan`
-// in repro_torch/kernels/ternary_conv2d.py; the kernel refuses one that is
-// not its own arithmetic.
+// (route, tile_h, tile_w, k_padded, warps_per_rows, blocks) comes from
+// `conv_plan` in repro_torch/kernels/ternary_conv2d.py; each route refuses a
+// plan that is not its own arithmetic.  Route 0 is the mma.sync kernel, route
+// 1 the persistent wgmma kernel (int8 x, C_in % 32 == 0, C_out 64 or 96, pool
+// 1 or 2).
 extern "C" int ternary_conv2d_launch(
     const void* x, int x_is_int8, const void* w_packed, const void* scale,
     const void* threshold, void* out, int out_is_int8, int B, int H, int W,
-    int C_in, int KH, int KW, int C_out, int tile_h, int tile_w, int k_padded,
-    int warps_per_rows, int blocks, int fuse_ternary, int fuse_pool, void* stream) {
+    int C_in, int KH, int KW, int C_out, int route, int tile_h, int tile_w,
+    int k_padded, int warps_per_rows, int blocks, int fuse_ternary, int fuse_pool,
+    void* stream) {
   const int pool = fuse_pool > 1 ? fuse_pool : 1;
   if (B < 1 || H < 1 || W < 1 || C_in < 4 || (C_in & 3) || KH < 1 || KW < 1 ||
       C_out < 1 || tile_h < 1 || tile_w < 1 || tile_h * tile_w > kTilePix ||
-      tile_h % pool || tile_w % pool || H % pool || W % pool || B > 65535)
+      tile_h % pool || tile_w % pool || H % pool || W % pool || B > 65535 || route < 0 ||
+      route > 1)
     return -1;
-  // the plan: the reduction padded to whole mma steps, the warps that share a
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* sc = static_cast<const float*>(scale);
+  const float* th = static_cast<const float*>(threshold);
+  if (route == 1) {
+    // the persistent route: 8 x 8 tiles, the whole reduction in k32 steps,
+    // one warp per 16 rows, one block per tile up to one block per SM
+    const long long tiles = static_cast<long long>(B) * ((H + kWgTile - 1) / kWgTile) *
+                            ((W + kWgTile - 1) / kWgTile);
+    const long long grid = tiles < kWgMaxBlocks ? tiles : kWgMaxBlocks;
+    if (!x_is_int8 || C_in % 32 || (C_out != 64 && C_out != 96) || pool > 2 ||
+        tile_h != kWgTile || tile_w != kWgTile || k_padded != KH * KW * C_in ||
+        warps_per_rows != 1 || blocks != grid ||
+        wg_layout(KH, KW, C_in, C_out).total > kWgMaxSmem)
+      return -1;
+    if (C_out == 64)
+      return dispatch_wg<64>(x, w_packed, sc, th, out, out_is_int8, B, H, W, C_in, KH, KW,
+                             fuse_ternary, pool, blocks, s);
+    return dispatch_wg<96>(x, w_packed, sc, th, out, out_is_int8, B, H, W, C_in, KH, KW,
+                           fuse_ternary, pool, blocks, s);
+  }
+  // route 0: the reduction padded to whole mma steps, the warps that share a
   // 16-pixel row group, and the grid
   const int groups = x_is_int8 ? Depth<int8_t>::kGroups : Depth<float>::kGroups;
   const int q_padded = (KH * KW * (C_in / 4) + groups - 1) / groups * groups;
@@ -408,9 +823,6 @@ extern "C" int ternary_conv2d_launch(
                          ((W + tile_w - 1) / tile_w) * ((C_out + kTileN - 1) / kTileN);
   if (k_padded != 4 * q_padded || warps_per_rows != kWarps / row_groups || blocks != grid)
     return -1;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* sc = static_cast<const float*>(scale);
-  const float* th = static_cast<const float*>(threshold);
   if (x_is_int8)
     return dispatch<int8_t>(x, w_packed, sc, th, out, out_is_int8, B, H, W, C_in,
                             KH, KW, C_out, tile_h, tile_w, fuse_ternary, pool, s);

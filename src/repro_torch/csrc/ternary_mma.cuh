@@ -1,7 +1,8 @@
 // Shared pieces of the two packed-ternary kernels for Hopper (sm_90a):
 // the 2-bit decode straight into tensor-core fragments, the exact three-way
 // bf16 split of a float32 operand, and thin inline-PTX wrappers for the two
-// `mma.sync` shapes and for `cp.async`.
+// `mma.sync` shapes, for `cp.async`, and for the int8 `wgmma` of the conv's
+// second route with its fences and shared-memory descriptor.
 //
 // Both kernels pack 4 consecutive elements of the REDUCTION axis into one
 // byte (K for the matmul, C_in for the conv), code = trit + 1 at bit shifts
@@ -22,11 +23,15 @@
 // are expanded only in registers, at fragment load; weight traffic stays at
 // 2 bits per trit.
 //
-// `mma.sync` and not `wgmma`: at the shapes these kernels serve (a pool tick's
-// conv layers, a 64-row matmul) the bound is 0.2-2 us per launch and what
-// separates a launch from it is occupancy and the dependent load/barrier
-// chain, not the tensor-core rate.  A warp-level mma keeps tiles small enough
-// to fill 132 SMs; `wgmma` + TMA is a later step if the rate ever binds.
+// `mma.sync` where a launch is bound by latency: at a pool tick's conv layers
+// and a 64-row matmul the bound is 0.2-2 us per launch and what separates a
+// launch from it is occupancy and the dependent load/barrier chain, not the
+// tensor-core rate; a warp-level mma keeps tiles small enough to fill 132
+// SMs.  `wgmma` (m64nNk32 s8, A from registers, B from shared memory through
+// a descriptor) where the rate binds: the conv's int8 launches that fill the
+// card many times over (ternary_conv2d.cu, route 1).  The wgmma B operand is
+// decoded once into shared memory in the K-major no-swizzle layout, since a
+// descriptor can only point at bytes, not at a decode.
 
 #pragma once
 
@@ -130,6 +135,112 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int kPending>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(kPending));
+}
+
+
+// ---- wgmma (sm_90a): a warpgroup's asynchronous 64 x N x 32 product --------
+//
+// The A fragment of m64nNk32 with 8-bit A in registers is, per warp w of the
+// warpgroup, the m16n8k32 A fragment of rows 16w .. 16w+15: a thread's four
+// registers hold rows g, g+8 (g = lane / 4) x k = 4t .. 4t+3 and 16+4t ..
+// 16+4t+3 (t = lane % 4), in the order {(g, lo), (g+8, lo), (g, hi), (g+8, hi)}.
+// The accumulator holds, for each 8-column group j, rows g and g+8 x columns
+// 8j + 2t, 8j + 2t + 1: d[4j] (g, 2t), d[4j+1] (g, 2t+1), d[4j+2] (g+8, 2t),
+// d[4j+3] (g+8, 2t+1).
+
+// A shared-memory matrix descriptor, no swizzle: the operand is made of core
+// matrices of 8 rows x 16 bytes (128 contiguous bytes, rows 16 B apart);
+// `lbo` is the byte distance between core matrices adjacent along K, `sbo`
+// between core matrices adjacent along M or N.
+__device__ __forceinline__ uint64_t smem_desc(uint32_t smem_addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((smem_addr & 0x3FFFFu) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) | (static_cast<uint64_t>(sbo >> 4) << 32);
+}
+
+// Register writes (A fragments, accumulators) ordered before the wgmmas
+// that follow; issued by the whole warpgroup.
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// Wait until at most kPending committed wgmma groups are in flight.
+template <int kPending>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(kPending) : "memory");
+}
+
+// A use and a redefinition of each register that the compiler cannot see
+// through.  ptxas does not know that an in-flight wgmma still reads its A
+// registers (nor the accumulators it writes): placed after the wgmma_wait
+// that retires the last wgmma reading them, this keeps the registers' values
+// live, and their physical registers unused by anything else, until then.
+template <typename T, int kRegs>
+__device__ __forceinline__ void fence_operands(T (&d)[kRegs]) {
+#pragma unroll
+  for (int i = 0; i < kRegs; ++i) asm volatile("" : "+r"(d[i]) :: "memory");
+}
+
+// Shared-memory writes of this thread made visible to the async proxy, which
+// reads the wgmma B operand.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// A barrier among ``threads`` threads (a warpgroup) on named barrier ``id``.
+__device__ __forceinline__ void bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
+}
+
+// d[32] (+)= a * b: m64n64k32, A (s8) from registers, B (s8) from shared memory
+// through its descriptor, int32 accumulators; accumulate = 0 overwrites d.
+__device__ __forceinline__ void wgmma_s8(int (&d)[32], const uint32_t (&a)[4],
+                                             uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p;\n"
+      "}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
+}
+
+// d[48] (+)= a * b: m64n96k32, A (s8) from registers, B (s8) from shared memory
+// through its descriptor, int32 accumulators; accumulate = 0 overwrites d.
+__device__ __forceinline__ void wgmma_s8(int (&d)[48], const uint32_t (&a)[4],
+                                             uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47}, "
+      "{%48, %49, %50, %51}, %52, p;\n"
+      "}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
 }
 
 }  // namespace tmma

@@ -44,6 +44,17 @@ _TILE_N = 32       # kTileN of the kernel: output channels per block
 _WARPS = 4         # warps per block
 _MAX_POOL = 8      # largest pool window a 64-pixel tile can hold square
 TARGET_BLOCKS = 132  # one block per SM of an H100
+# route 1, the persistent wgmma kernel: its constants (kWg* in the source)
+_WG_TILE = 8          # a warpgroup's tile: 8 x 8 output pixels
+_WG_GROUPS = 4        # consumer warpgroups per block
+_WG_WIDTHS = (64, 96)  # C_out that one wgmma covers (its N)
+_WG_MAX_SMEM = 232448  # dynamic shared memory a block may use
+# the crossover: the wgmma kernel takes a launch that fills the card, at
+# least one 8 x 8 tile per SM and 1024 output pixels.  Launch by launch it is
+# the faster from 32 tiles on (PERF.md section 6), but in the pool-8 tick its
+# two launches of 128 and 32 tiles made the served tick slower, not faster
+WG_MIN_TILES = TARGET_BLOCKS
+WG_MIN_PIXELS = 1024
 
 
 def _select_w(wp: torch.Tensor, dtype) -> torch.Tensor:
@@ -155,24 +166,59 @@ def tile_shape(h: int, w: int, fuse_pool: int, pixels: int = _TILE_PIXELS) -> Tu
 
 class ConvPlan(NamedTuple):
     """What the wrapper passes to the kernel, which checks every field."""
-    tile_h: int        # output pixels per block: rows ...
+    route: int         # 0: the mma.sync kernel; 1: the persistent wgmma kernel
+    tile_h: int        # output pixels per block (route 0) or warpgroup (route 1): rows ...
     tile_w: int        # ... and columns, multiples of the pool window
     k_padded: int      # KH*KW*C_in padded with zero trits to whole mmas (32 int8, 16 bf16 deep)
     warps_per_rows: int  # warps that share one 16-pixel row group (split the reduction)
     blocks: int        # grid size
 
 
-def conv_plan(b: int, h: int, w: int, c_in: int, c_out: int, kh: int, kw: int,
-              fuse_pool: int, x_dtype=torch.int8) -> ConvPlan:
-    """The kernel's tiling of one launch as an implicit GEMM: M = output
-    pixels in tiles of 64, 32 or 16 (the largest that still gives
-    ``TARGET_BLOCKS`` blocks, else the smallest that holds a pool window),
-    N = 32-channel tiles, and the reduction (tap, channel) flattened with
-    the channel fastest and padded once to the mma depth.  Four warps per
-    block; a tile of fewer than 64 pixels splits its reduction across the
-    warps that share a 16-pixel row group."""
-    if x_dtype not in (torch.float32, torch.int8):
-        raise ValueError(f"x dtype {x_dtype} not in (float32, int8)")
+def _round16(v: int) -> int:
+    return (v + 15) & ~15
+
+
+def wg_smem_bytes(kh: int, kw: int, c_in: int, c_out: int) -> int:
+    """Dynamic shared memory of one block of the wgmma kernel (`wg_layout`
+    in the source): the decoded B operand (k-steps x 32 x C_out bytes), the
+    k-step table, scales and thresholds, and per warpgroup two input patches
+    and its warps' output staging rows."""
+    k_steps = kh * kw * c_in // 32
+    fixed = _round16(k_steps * 32 * c_out) + _round16(k_steps * 4) + 2 * _round16(c_out * 4)
+    patch = _round16((_WG_TILE + kh - 1) * (_WG_TILE + kw - 1) * (c_in + 16))
+    staging = 4 * 16 * (c_out + 16)
+    return fixed + _WG_GROUPS * (2 * patch + staging)
+
+
+def wg_tiles(b: int, h: int, w: int) -> int:
+    """The wgmma kernel's 8 x 8 output tiles of a launch: B*H*W in whole tiles."""
+    return b * -(-h // _WG_TILE) * -(-w // _WG_TILE)
+
+
+def conv_route(b: int, h: int, w: int, c_in: int, c_out: int, kh: int, kw: int,
+               fuse_pool: int, x_dtype=torch.int8) -> int:
+    """The kernel a launch of this shape takes, from the shape alone: 1, the
+    persistent wgmma kernel, for int8 x whose k32 steps each stay inside one
+    tap (C_in % 32 == 0), C_out one wgmma covers, no pool or a 2x2 one, the
+    decoded weights and patches within a block's shared memory, and at least
+    ``WG_MIN_TILES`` tiles and ``WG_MIN_PIXELS`` output pixels; else 0, the
+    mma.sync kernel."""
+    return int(
+        x_dtype == torch.int8 and c_in % 32 == 0 and c_out in _WG_WIDTHS
+        and fuse_pool in (0, 1, 2) and wg_tiles(b, h, w) >= WG_MIN_TILES
+        and b * h * w >= WG_MIN_PIXELS
+        and wg_smem_bytes(kh, kw, c_in, c_out) <= _WG_MAX_SMEM
+    )
+
+
+def _mma_plan(b: int, h: int, w: int, c_in: int, c_out: int, kh: int, kw: int,
+              fuse_pool: int, x_dtype) -> ConvPlan:
+    """Route 0's tiling: M = output pixels in tiles of 64, 32 or 16 (the
+    largest that still gives ``TARGET_BLOCKS`` blocks, else the smallest that
+    holds a pool window), N = 32-channel tiles, and the reduction (tap,
+    channel) flattened with the channel fastest and padded once to the mma
+    depth.  Four warps per block; a tile of fewer than 64 pixels splits its
+    reduction across the warps that share a 16-pixel row group."""
     p = fuse_pool if fuse_pool > 1 else 1
     n_tiles = -(-c_out // _TILE_N)
     choices = [px for px in _TILE_CHOICES if px >= p * p]
@@ -186,14 +232,38 @@ def conv_plan(b: int, h: int, w: int, c_in: int, c_out: int, kh: int, kw: int,
     mma_k = 32 if x_dtype == torch.int8 else 16
     k_padded = -(-kh * kw * c_in // mma_k) * mma_k
     row_groups = -(-th * tw // 16)
-    return ConvPlan(th, tw, k_padded, _WARPS // row_groups, blocks)
+    return ConvPlan(0, th, tw, k_padded, _WARPS // row_groups, blocks)
+
+
+def _wgmma_plan(b: int, h: int, w: int, c_in: int, c_out: int, kh: int, kw: int) -> ConvPlan:
+    """Route 1's tiling: 8 x 8 output-pixel tiles (a 64-row wgmma, each warp
+    16 rows = 2 image rows x 8 columns, so a 2x2 window is two registers and
+    a neighbour lane), all of C_out in one wgmma, the reduction in k32 steps
+    with no padding, and one block per tile up to one per SM: tile t goes to
+    block ``t % blocks``, and a block's ``_WG_GROUPS`` warpgroups take its
+    tiles in turn."""
+    blocks = min(TARGET_BLOCKS, wg_tiles(b, h, w))
+    return ConvPlan(1, _WG_TILE, _WG_TILE, kh * kw * c_in, 1, blocks)
+
+
+def conv_plan(b: int, h: int, w: int, c_in: int, c_out: int, kh: int, kw: int,
+              fuse_pool: int, x_dtype=torch.int8) -> ConvPlan:
+    """The kernel's tiling of one launch as an implicit GEMM (M = output
+    pixels, N = output channels, K = (tap, channel) with the channel
+    fastest), on the route `conv_route` picks from the shape: the persistent
+    wgmma kernel's (`_wgmma_plan`) or the mma.sync kernel's (`_mma_plan`)."""
+    if x_dtype not in (torch.float32, torch.int8):
+        raise ValueError(f"x dtype {x_dtype} not in (float32, int8)")
+    if conv_route(b, h, w, c_in, c_out, kh, kw, fuse_pool, x_dtype):
+        return _wgmma_plan(b, h, w, c_in, c_out, kh, kw)
+    return _mma_plan(b, h, w, c_in, c_out, kh, kw, fuse_pool, x_dtype)
 
 
 def _bind(lib: ctypes.CDLL):
     fn = lib.ternary_conv2d_launch
     if not fn.argtypes:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, i, p, p, p, p, i, i, i, i, i, i, i, i, i, i, i, i, i, i, i, p]
+        fn.argtypes = [p, i, p, p, p, p, i, i, i, i, i, i, i, i, i, i, i, i, i, i, i, i, p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -219,10 +289,20 @@ def ternary_conv2d_cuda(
 ) -> torch.Tensor:
     """Launch the Hopper kernel on CUDA tensors (same arguments as
     :func:`ternary_conv2d_native`).  x is float32 or int8; the output is
-    float32, or int8 when ``fuse_ternary``.  Enqueues on PyTorch's current
-    stream and does not synchronise.  Raises ValueError on arguments the
-    kernel does not take and RuntimeError when the build or the launch
-    fails; there is no fallback."""
+    float32, or int8 when ``fuse_ternary``.  The launch's shape picks the
+    route (`conv_plan`).  Enqueues on PyTorch's current stream and does not
+    synchronise.  Raises ValueError on arguments the kernel does not take
+    and RuntimeError when the build or the launch fails; there is no
+    fallback."""
+    return _launch_planned(x, w_packed, scale, threshold, None, fuse_ternary=fuse_ternary,
+                           fuse_pool=fuse_pool, out_dtype=out_dtype)
+
+
+def _launch_planned(x, w_packed, scale, threshold, plan, *, fuse_ternary=False, fuse_pool=0,
+                    out_dtype=None) -> torch.Tensor:
+    """`ternary_conv2d_cuda` with a given plan (None: `conv_plan`'s), for the
+    card's tests and the crossover measurement, which hold both routes
+    against each other at one shape."""
     if x.device.type != "cuda":
         raise ValueError(f"ternary_conv2d_cuda needs CUDA tensors, x lies on {x.device}")
     if x.ndim != 4 or w_packed.ndim != 4:
@@ -249,7 +329,7 @@ def ternary_conv2d_cuda(
         raise ValueError("int8 output carries trits only: it needs fuse_ternary=True")
     if min(b, h, w, c_out) < 1 or b > 65535:
         raise ValueError(f"empty or oversized launch: B={b} H={h} W={w} C_out={c_out}")
-    plan = conv_plan(b, h, w, c_in, c_out, kh, kw, fuse_pool, x.dtype)
+    plan = plan or conv_plan(b, h, w, c_in, c_out, kh, kw, fuse_pool, x.dtype)
     # cp.async copies 4 B of int8 x (16 B of float32 x) and 4 B of packed
     # bytes: a view that starts off that alignment is copied first
     if x.data_ptr() % 16:
@@ -274,10 +354,13 @@ def ternary_conv2d_cuda(
             f"ternary_conv2d kernel launch refused (code {rc}) for x"
             f"{tuple(x.shape)} w{tuple(w_packed.shape)} pool={fuse_pool} {plan}"
         )
+    wg = int(plan.route == 1)
     if capturing:
         ternary_conv2d_cuda.recorded += 1
+        ternary_conv2d_cuda.recorded_wgmma += wg
     else:
         ternary_conv2d_cuda.launches += 1
+        ternary_conv2d_cuda.launches_wgmma += wg
     return out
 
 
@@ -285,6 +368,9 @@ def ternary_conv2d_cuda(
 # was launched.  A run resets it to 0 and reads it to prove its path.  A call
 # made while the stream is capturing a CUDA graph launches nothing: it counts
 # in ``recorded``, and the graph's owner adds the launches its graph holds to
-# ``launches`` on every replay (`repro_torch.capture.CapturedStep`).
+# ``launches`` on every replay (`repro_torch.capture.CapturedStep`).  The
+# ``_wgmma`` pair counts the launches among them that took route 1.
 ternary_conv2d_cuda.launches = 0
 ternary_conv2d_cuda.recorded = 0
+ternary_conv2d_cuda.launches_wgmma = 0
+ternary_conv2d_cuda.recorded_wgmma = 0

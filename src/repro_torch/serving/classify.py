@@ -56,7 +56,8 @@ when the queue was empty; ``inflight``: 1 when it returned with its batch
 still on the card, else 0) holds, on a stepping tick,
 ``classify.assemble``, ``classify.upload`` (args ``bytes``, ``pinned``),
 ``classify.replay`` (arg ``k1``: the K1 launches a replay holds, 0 on the
-tick that builds the step; the logits' copy out is enqueued in it) and, on
+tick that builds the step; ``k1_wgmma``: those of them on K1's wgmma
+route; the logits' copy out is enqueued in it) and, on
 a tick that flushes, one ``classify.flush`` (args ``rows``: the rows it
 handed out; ``waited_us``: the host's wait on the logits' events, near 0
 where the host sets the pace); a ``classify.queue_depth`` counter samples
@@ -210,7 +211,8 @@ class BatchClassifier:
                 taken = self._assemble(slot)
             stepped = _Batch(taken, sum(k for _, _, k in taken), slot)
             self._upload(slot)
-            with tr.span("classify.replay", track=track, k1=self.step.k1_per_replay):
+            with tr.span("classify.replay", track=track, k1=self.step.k1_per_replay,
+                         k1_wgmma=self.step.k1_wgmma_per_replay):
                 self._device_spans.mark(1)
                 builds = self.step.builds
                 logits = self.step()

@@ -57,8 +57,8 @@ ring; it returns a new logits tensor every tick.
 pair of the pool's ring) covers the batch's copy, an enqueue from the
 pinned pair on a card, and ``pool.replay`` (arg ``k1``: the K1 launches
 the replays hold, from `CapturedStep.k1_per_replay`, 0 on the tick that
-builds the step) the blocks' steps and the concatenation, host enqueue
-only.  An instant ``pool.stage_wait`` (arg ``waited_us``) marks a
+builds the step; ``k1_wgmma``: those of them on K1's wgmma route) the
+blocks' steps and the concatenation, host enqueue only.  An instant ``pool.stage_wait`` (arg ``waited_us``) marks a
 `next_pair` that had to wait for a ring pair's earlier copy to land.  An
 instant ``pool.build`` (arg ``capture_s``) marks each block's build of its
 step.
@@ -300,7 +300,7 @@ class SessionPool:
         self.tracer = NULL_TRACER
         self.track = getattr(deployed.graph, "name", "pool")
         self._device_spans = NULL_DEVICE_SPANS
-        self._k1 = 0  # K1 launches a replay of every block holds
+        self._k1 = self._k1_wgmma = 0  # K1 launches a replay of every block holds
         self._dev_args: List[Dict] = []  # the device spans' args, per device
         self.bind_tracer(tracer)
 
@@ -437,7 +437,7 @@ class SessionPool:
         with tr.span("pool.step", track=track, pool_size=self.pool_size):
             timed.resolve()
             self._upload(batch, active)
-            with tr.span("pool.replay", track=track, k1=self._k1):
+            with tr.span("pool.replay", track=track, k1=self._k1, k1_wgmma=self._k1_wgmma):
                 timed.mark(1)
                 outs = []
                 for b in self._blocks:
@@ -484,11 +484,13 @@ class SessionPool:
 
     def _count_k1(self) -> None:
         """K1 launches a replay holds (`CapturedStep.k1_per_replay`): in all,
-        for ``pool.replay``, and per device, for each ``dev.replay``."""
+        for ``pool.replay`` (with those on K1's wgmma route), and per device,
+        for each ``dev.replay``."""
         per_device: Dict[torch.device, int] = {}
         for b in self._blocks:
             per_device[b.device] = per_device.get(b.device, 0) + b.step.k1_per_replay
         self._k1 = sum(per_device.values())
+        self._k1_wgmma = sum(b.step.k1_wgmma_per_replay for b in self._blocks)
         self._dev_args = [{"dev.replay": {"k1": n}} for n in per_device.values()]
 
     # -- introspection -----------------------------------------------------

@@ -77,10 +77,10 @@ def _tick(t0, k, streams, queued, departures, first=False):
     upload = ("X", "pool.upload", t0 + 9, 1, {"bytes": 258, "pinned": False, "staged": True})
     if first:  # the build: eager on the CPU, no capture time
         body = [upload, ("i", "pool.build", t0 + 12, 0, {"capture_s": None}),
-                ("X", "pool.replay", t0 + 11, 2, {"k1": 0})]
+                ("X", "pool.replay", t0 + 11, 2, {"k1": 0, "k1_wgmma": 0})]
         step_len = 8
     else:
-        body = [upload, ("X", "pool.replay", t0 + 11, 1, {"k1": 0})]
+        body = [upload, ("X", "pool.replay", t0 + 11, 1, {"k1": 0, "k1_wgmma": 0})]
         step_len = 7
     ev = [("X", "admit", t0 + 1, 1, None),
           ("C", "occupancy", t0 + 3, 0, {"occupancy": streams / 2}),

@@ -7,6 +7,7 @@ None of it needs a card: the kernels take their plans as arguments and
 check them, and the plain functions here are what the CUDA sources
 compute.  Same numpy inputs go to the reference where a reference exists.
 """
+import ctypes
 import math
 import re
 from types import SimpleNamespace
@@ -214,14 +215,18 @@ def test_editing_a_shared_header_changes_the_library_key(tmp_path, monkeypatch):
     ("ternary_matmul.cu", bind_matmul, ("block_m", "block_n", "k_split", "splits")),
 ])
 def test_the_kernel_receives_the_whole_plan(source, bind, plan_args):
-    """The wrapper's ctypes signature matches the source's C entry point, and
-    every field of the host plan is an argument the kernel checks."""
+    """The wrapper's ctypes signature matches the source's C entry point
+    (pointers as ``c_void_p``, ints as ``c_int``), and every field of the
+    host plan is an argument the kernel checks."""
     src = (build.CSRC_DIR / source).read_text()
     entry = source.split(".")[0] + "_launch"
     sig = re.search(r'extern "C" int ' + entry + r"\((.*?)\)\s*\{", src, re.S).group(1)
     names = [p.split()[-1].lstrip("*") for p in sig.split(",")]
     lib = SimpleNamespace(**{entry: SimpleNamespace(argtypes=None, restype=None)})
-    assert len(bind(lib).argtypes) == len(names)
+    argtypes = bind(lib).argtypes
+    assert len(argtypes) == len(names)
+    for param, arg in zip(sig.split(","), argtypes):
+        assert arg is (ctypes.c_void_p if "*" in param else ctypes.c_int), param
     i = names.index(plan_args[0])
     assert tuple(names[i:i + len(plan_args)]) == tuple(plan_args)
     body = src[src.index(sig):]
